@@ -1,0 +1,4 @@
+# Hand-written CUDA kernels of the port (csrc/), their ctypes wrappers
+# (gp.py), the plain PyTorch oracles beside them (ref.py) and the
+# dispatch layer the GP numerics call (ops.py).  Nothing here builds or
+# loads a kernel at import time: the first CUDA call does.

@@ -1,0 +1,59 @@
+"""Public dispatch for the GP kernels.
+
+For CUDA tensors these launch the hand-written kernels (``kernels/gp.py``);
+for CPU tensors they run the plain PyTorch oracles in ``ref.py`` — callers
+never branch on the device themselves.  ``force_kernel=True`` routes CPU
+tensors through the kernel wrappers too, which on the CPU take their plain
+versions: that is how the CPU tests reach the autograd ``gp_nll`` and its
+analytic backward.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import gp as _gpk
+from repro_torch.kernels import ref
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def gp_neg_mll(log_ls, log_amp, log_noise, x, y, mask, *,
+               force_kernel=False):
+    """Batched masked GP neg-MLL over lanes: the fused CUDA kernel with
+    its analytic backward on the card, plain differentiable torch on the
+    CPU.  Shapes: log_ls (k,d), log_amp (k,), log_noise (k,), x (k,b,d),
+    y (k,b), mask (k,b) -> nll (k,)."""
+    if _on_cuda(x) or force_kernel:
+        return _gpk.gp_nll(log_ls, log_amp, log_noise, x, y, mask)
+    return ref.gp_nll_ref(log_ls, log_amp, log_noise, x, y, mask)
+
+
+def gp_fit_grads(log_ls, log_amp, log_noise, x, y, mask, *,
+                 force_kernel=False):
+    """Per-lane NLL hyperparameter gradients for the batched Adam fit loop
+    (``gp._fit_lanes``).  On the card this differentiates the fused
+    kernel through its ``autograd.Function`` (whose backward reuses the
+    kernel's L and z); on the CPU it runs the matmul-rich analytic
+    adjoint directly.  Returns (g_log_ls (k,d), g_log_amp (k,),
+    g_log_noise (k,))."""
+    if _on_cuda(x) or force_kernel:
+        with torch.enable_grad():
+            ll = log_ls.detach().requires_grad_()
+            la = log_amp.detach().requires_grad_()
+            ln = log_noise.detach().requires_grad_()
+            nll = _gpk.gp_nll(ll, la, ln, x, y, mask).sum()
+            return torch.autograd.grad(nll, (ll, la, ln))
+    return ref.gp_nll_grads_ref(log_ls, log_amp, log_noise, x, y, mask)
+
+
+def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand,
+          best, *, xi=0.01, force_kernel=False):
+    """Batched expected improvement over per-lane posteriors.  Shapes as
+    in ``ref.gp_ei_ref`` -> ei (k,m) in raw y units."""
+    if _on_cuda(x) or force_kernel:
+        return _gpk.gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean,
+                          y_std, cand, best, xi=xi)
+    return ref.gp_ei_ref(log_ls, log_amp, x, mask, chol, alpha, y_mean,
+                         y_std, cand, best, xi=xi)

@@ -1,0 +1,139 @@
+"""Plain PyTorch oracles for the GP kernels (the allclose ground truth).
+
+Torch mirrors of ``_matern52``, ``gp_nll_ref``, ``gp_nll_grads_ref`` and
+``gp_ei_ref`` from the JAX package's ``kernels/ref.py``, formula for
+formula, so the CPU tests can hold each one against its JAX counterpart
+and ``chip_smoke.py`` can hold the CUDA kernels against them on the card.
+The oracles of the kernels that are not ported yet (flash attention,
+RG-LRU scan, int8 quantization) come with those kernels.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def _matern52(a, b, log_ls, log_amp):
+    """Matérn-5/2 ARD cross-covariance of a (..., n, d) and b (..., m, d)
+    -> (..., n, m), with per-row leading dims broadcast (a lane axis).
+    Mirrors ``core/suggest/gp.py`` — kernels/ must not import core, so
+    the formula is duplicated here and pinned by parity tests."""
+    ls = torch.exp(log_ls).unsqueeze(-2)                  # (...,1,d)
+    amp2 = torch.exp(2.0 * log_amp)[..., None, None]
+    a = a / ls
+    b = b / ls
+    sq = torch.clamp(
+        (a * a).sum(-1)[..., :, None] - 2.0 * a @ b.transpose(-1, -2)
+        + (b * b).sum(-1)[..., None, :], min=0.0)
+    r = torch.sqrt(sq + 1e-12)
+    s5r = math.sqrt(5.0) * r
+    return amp2 * (1.0 + s5r + (5.0 / 3.0) * r * r) * torch.exp(-s5r)
+
+
+def cholesky(cov):
+    """Lower Cholesky factor that, like ``jnp.linalg.cholesky``, comes
+    out all NaN (value and gradient) for a matrix that is not positive
+    definite instead of raising: the fit loops reject a NaN step per
+    lane, and no host sync is needed to find out.  Row-major, as the
+    CUDA kernels take it (CUDA's factor comes back column-major)."""
+    L, info = torch.linalg.cholesky_ex(cov)
+    bad = torch.where(info == 0, 0.0, float("nan")).to(L.dtype)
+    return (L + bad[..., None, None]).contiguous()
+
+
+def masked_cov(log_ls, log_amp, log_noise, x, mask):
+    """Lane-batched masked covariance: Matérn + noise on the real rows,
+    an identity block on the padded ones.  (k,b,d), (k,b) -> (k,b,b)."""
+    b = x.shape[-2]
+    eye = torch.eye(b, dtype=x.dtype, device=x.device)
+    noise2 = (torch.exp(2.0 * log_noise) + 1e-5)[..., None, None]
+    k = _matern52(x, x, log_ls, log_amp) + noise2 * eye
+    mm = mask[..., :, None] * mask[..., None, :]
+    return k * mm + torch.diag_embed(1.0 - mask)
+
+
+def gp_nll_ref(log_ls, log_amp, log_noise, x, y, mask):
+    """Batched masked GP negative log marginal likelihood oracle.
+
+    log_ls (k,d), log_amp (k,), log_noise (k,), x (k,b,d), y (k,b),
+    mask (k,b) -> nll (k,).  Padded rows carry an identity block in the
+    covariance so each lane's value is independent of the bucket size.
+    Plain differentiable torch: the CPU path of ``ops.gp_neg_mll`` and
+    the ground truth for the CUDA kernel."""
+    cov = masked_cov(log_ls, log_amp, log_noise, x, mask)
+    chol = cholesky(cov)
+    ym = (y * mask).unsqueeze(-1)
+    alpha = torch.cholesky_solve(ym, chol)
+    return (0.5 * (ym * alpha).sum((-2, -1))
+            + torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)).sum(-1)
+            + 0.5 * mask.sum(-1) * _LOG_2PI)
+
+
+def gp_nll_grads_ref(log_ls, log_amp, log_noise, x, y, mask):
+    """Per-lane gradients of ``gp_nll_ref`` w.r.t. the hyperparameters:
+    the analytic adjoint dNLL/dθ = tr(S·∂K/∂θ), S = ½(K⁻¹ − αα'),
+    written batched and matmul-rich (one Cholesky and one triangular
+    solve per lane, every kernel-derivative contraction a batched
+    matmul).  Shapes as in ``gp_nll_ref`` -> (g_log_ls (k,d),
+    g_log_amp (k,), g_log_noise (k,)).  All-zero-mask lanes get exactly
+    zero grads."""
+    k, b, d = x.shape
+    ls = torch.exp(log_ls)                                # (k,d)
+    amp2 = torch.exp(2.0 * log_amp)                       # (k,)
+    noise2 = torch.exp(2.0 * log_noise) + 1e-5            # (k,)
+    xa = x / ls[:, None, :]                               # (k,b,d)
+    q = (xa * xa).sum(-1)                                 # (k,b)
+    sq = torch.clamp(q[:, :, None]
+                     - 2.0 * torch.einsum("kid,kjd->kij", xa, xa)
+                     + q[:, None, :], min=0.0)
+    r = torch.sqrt(sq + 1e-12)
+    s5r = math.sqrt(5.0) * r
+    e = torch.exp(-s5r)
+    mat = amp2[:, None, None] * (1.0 + s5r + (5.0 / 3.0) * r * r) * e
+    mm = mask[:, :, None] * mask[:, None, :]
+    eye = torch.eye(b, dtype=x.dtype, device=x.device)
+    cov = (mat + noise2[:, None, None] * eye) * mm \
+        + (1.0 - mask)[:, :, None] * eye
+    L = cholesky(cov)
+    linv = torch.linalg.solve_triangular(L, eye.expand(k, b, b),
+                                         upper=False)
+    ki = torch.einsum("kji,kjl->kil", linv, linv)         # K⁻¹ = L⁻ᵀL⁻¹
+    alpha = torch.einsum("kij,kj->ki", ki, y * mask)
+    S = 0.5 * (ki - alpha[:, :, None] * alpha[:, None, :])
+    W = S * mm
+    # ∂k/∂log_ls_d = amp2·(5/3)(1+√5r)e^{−√5r}·(xa_id − xa_jd)²; V is
+    # symmetric, so Σ_ij V_ij(xa_id−xa_jd)² folds into one V@xa matmul
+    V = W * (amp2[:, None, None] * (5.0 / 3.0) * (1.0 + s5r) * e)
+    rs = V.sum(2)                                         # (k,b)
+    vxa = torch.einsum("kij,kjd->kid", V, xa)
+    g_ll = 2.0 * (torch.einsum("ki,kid->kd", rs, xa * xa)
+                  - torch.einsum("kid,kid->kd", xa, vxa))
+    g_la = 2.0 * (W * mat).sum((1, 2))
+    g_ln = 2.0 * torch.exp(2.0 * log_noise) * (
+        torch.diagonal(S, dim1=1, dim2=2) * mask).sum(1)
+    return g_ll, g_la, g_ln
+
+
+def gp_ei_ref(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std,
+              cand, best, xi=0.01):
+    """Batched expected-improvement oracle over per-lane posteriors.
+
+    log_ls (k,d), log_amp (k,), x (k,b,d), mask (k,b), chol (k,b,b),
+    alpha (k,b), y_mean (k,), y_std (k,), cand (k,m,d), best (k,)
+    -> ei (k,m) in raw y units (mirrors gp.predict + expected_improvement)."""
+    kq = _matern52(cand, x, log_ls, log_amp) * mask[:, None, :]  # (k,m,b)
+    mu = (kq @ alpha.unsqueeze(-1)).squeeze(-1)                  # (k,m)
+    v = torch.linalg.solve_triangular(chol, kq.transpose(-1, -2),
+                                      upper=False)               # (k,b,m)
+    amp2 = torch.exp(2.0 * log_amp)[:, None]
+    var = torch.clamp(amp2 - (v * v).sum(-2), min=1e-12)
+    mu = mu * y_std[:, None] + y_mean[:, None]
+    sd = torch.sqrt(var) * y_std[:, None]
+    imp = mu - best[:, None] - xi
+    z = imp / sd
+    ncdf = 0.5 * (1.0 + torch.erf(z / math.sqrt(2.0)))
+    npdf = torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
+    return imp * ncdf + sd * npdf

@@ -1,0 +1,83 @@
+"""The port stands alone: no module of ``repro_torch`` (nor
+``chip_smoke.py``) imports JAX or anything of the JAX package, and the
+device default is the CUDA card with no silent CPU fall-back."""
+import pathlib
+import re
+import subprocess
+import sys
+import tempfile
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+_IMPORT_SCRIPT = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 20 else 0)
+"""
+
+
+def test_importing_every_port_module_loads_no_jax_and_no_reference():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPT],
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|"
+    r"from\s+repro(\.|\s)|import\s+repro(\.|\s|$))", re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+def test_source_imports_neither_jax_nor_the_reference(path):
+    text = (ROOT / path).read_text()
+    assert not _FORBIDDEN.search(text), _FORBIDDEN.search(text).group(0)
+
+
+def test_resolve_default_needs_cuda(monkeypatch):
+    from repro_torch.device import resolve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve()
+    assert resolve("cpu") == torch.device("cpu")
+    assert resolve(torch.device("cpu")) == torch.device("cpu")
+
+
+def test_local_client_default_device_needs_cuda(monkeypatch):
+    from repro_torch.api import LocalClient
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        LocalClient(tempfile.mkdtemp())
+    assert LocalClient(tempfile.mkdtemp(), device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    """``chip_smoke.py`` exits non-zero and prints no result without a
+    card, and in a directory holding nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    lone = pathlib.Path(tempfile.mkdtemp())
+    (lone / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(lone / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=lone, env={"PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0 and '"ok"' not in out.stdout

@@ -1,0 +1,209 @@
+"""The port's GP kernel layer against the JAX reference's oracles.
+
+The torch oracles in ``repro_torch.kernels.ref`` are held against
+``repro.kernels.ref`` on the same float32 inputs (made with numpy), on the
+reference kernel tests' ``_gp_case`` shapes (b = 16) and on b = 64; the
+port's autograd ``gp_nll`` (forward plain on the CPU, analytic backward)
+is held against autograd through the oracle.  The CUDA kernels themselves
+run only on the card: their test skips here and runs under
+``python3 chip_smoke.py`` / pytest on a machine with one.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import gp as kgp
+from repro_torch.kernels import ops, ref
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: one intra-op thread is enough, and the suite runs
+    beside other test processes on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _gp_case(k=3, b=16, d=3, seed=0):
+    """k lanes over a b-bucket with distinct masked sizes (incl. one
+    nearly-empty lane) — hyperparams spread across the clamp range."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((k, b, d)).astype(np.float32)
+    y = rng.standard_normal((k, b)).astype(np.float32)
+    ns = [b, max(2, b // 2), 2][:k] + [b] * max(0, k - 3)
+    mask = np.zeros((k, b), np.float32)
+    for i, n in enumerate(ns):
+        mask[i, :n] = 1.0
+    log_ls = rng.uniform(-1.5, 0.5, (k, d)).astype(np.float32)
+    log_amp = rng.uniform(-0.5, 0.5, (k,)).astype(np.float32)
+    log_noise = rng.uniform(-3.0, -1.0, (k,)).astype(np.float32)
+    return log_ls, log_amp, log_noise, x, y, mask
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.array(a)) for a in arrays)
+
+
+def _posterior_factors(ll, la, ln, x, y, mask, seed=2):
+    """Each lane's chol/alpha as the optimizer builds them (numpy f32),
+    plus (y_mean, y_std, cand, best)."""
+    k, b, d = x.shape
+    cov = jax.vmap(jref._matern52)(x, x, ll, la)
+    noise2 = np.exp(2.0 * ln) + 1e-5
+    eye = np.eye(b, dtype=np.float32)
+    mm = mask[:, :, None] * mask[:, None, :]
+    cov = (np.asarray(cov) + noise2[:, None, None] * eye) * mm \
+        + (1.0 - mask)[:, :, None] * eye
+    chol = np.asarray(jnp.linalg.cholesky(jnp.asarray(cov, jnp.float32)))
+    alpha = np.asarray(jax.vmap(
+        lambda L, v: jax.scipy.linalg.cho_solve((L, True), v))(
+            chol, y * mask))
+    rng = np.random.default_rng(seed)
+    y_mean = rng.standard_normal(k).astype(np.float32)
+    y_std = rng.uniform(0.5, 2.0, k).astype(np.float32)
+    cand = rng.random((k, 8, d)).astype(np.float32)
+    best = rng.standard_normal(k).astype(np.float32)
+    return chol, alpha, y_mean, y_std, cand, best
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_gp_nll_ref_matches_jax(b):
+    """float32 Cholesky round-off over a b-long factorization; the NLL is
+    O(10-100), so rtol 1e-5 with atol 1e-4 for the near-empty lane."""
+    case = _gp_case(b=b)
+    got = ref.gp_nll_ref(*_t(*case)).numpy()
+    want = np.asarray(jref.gp_nll_ref(*case))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_gp_nll_grads_ref_matches_jax(b):
+    """Two float32 programs of the same adjoint (K⁻¹ assembled from an
+    explicit triangular inverse): agreement to 1e-4 of the gradient."""
+    case = _gp_case(b=b)
+    got = ref.gp_nll_grads_ref(*_t(*case))
+    want = jref.gp_nll_grads_ref(*case)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_gp_ei_ref_matches_jax(b):
+    """Same factors in, same closed form out: one triangular solve of
+    float32 round-off apart (atol/rtol 1e-5)."""
+    ll, la, ln, x, y, mask = _gp_case(b=b)
+    factors = _posterior_factors(ll, la, ln, x, y, mask)
+    args = (ll, la, x, mask) + factors
+    got = ref.gp_ei_ref(*_t(*args)).numpy()
+    want = np.asarray(jref.gp_ei_ref(*args))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_gp_nll_autograd_backward_matches_autodiff(b):
+    """The port's ``gp_nll`` autograd Function (analytic backward from
+    the forward's L and z residuals) against torch.autograd through the
+    plain oracle: two derivations of one gradient in float32, atol/rtol
+    1e-3 (the reference holds its Pallas backward to 1e-2)."""
+    ll, la, ln, x, y, mask = _t(*_gp_case(b=b, seed=1))
+    got = ops.gp_fit_grads(ll, la, ln, x, y, mask, force_kernel=True)
+    leaves = [t.clone().requires_grad_() for t in (ll, la, ln)]
+    want = torch.autograd.grad(
+        ref.gp_nll_ref(*leaves, x, y, mask).sum(), leaves)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-3,
+                                   atol=1e-3)
+    # the forward value through the Function equals the oracle's
+    np.testing.assert_allclose(
+        ops.gp_neg_mll(ll, la, ln, x, y, mask, force_kernel=True).numpy(),
+        ref.gp_nll_ref(ll, la, ln, x, y, mask).numpy(), rtol=1e-5,
+        atol=1e-4)
+
+
+def test_gp_nll_backward_y_cotangent():
+    """dNLL/dy from the analytic backward is K⁻¹(y·m)·m — autograd
+    through the oracle gives the same (y is the one data input with an
+    exact cotangent)."""
+    ll, la, ln, x, y, mask = _t(*_gp_case(seed=3))
+    yg = y.clone().requires_grad_()
+    got, = torch.autograd.grad(kgp.gp_nll(ll, la, ln, x, yg, mask).sum(),
+                               yg)
+    yw = y.clone().requires_grad_()
+    want, = torch.autograd.grad(ref.gp_nll_ref(ll, la, ln, x, yw,
+                                               mask).sum(), yw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("path", ["oracle", "autograd"])
+def test_inert_lane_has_zero_gradients(path):
+    """All-zero-mask lanes (batch padding) must contribute exactly zero
+    gradient, through both gradient implementations of
+    ``ops.gp_fit_grads``."""
+    ll, la, ln, x, y, mask = _t(*_gp_case())
+    mask[1] = 0.0
+    g_ll, g_la, g_ln = ops.gp_fit_grads(ll, la, ln, x, y, mask,
+                                        force_kernel=(path == "autograd"))
+    assert float(g_ll[1].abs().max()) == 0.0
+    assert float(g_la[1]) == 0.0
+    assert float(g_ln[1]) == 0.0
+
+
+def test_plain_nll_chol_residuals():
+    """``gp_nll_chol_plain`` (what the CUDA kernel is held against):
+    L is the lower factor of the masked covariance with exact zeros above
+    the diagonal and identity rows at the padding, and z = L⁻¹(y·m)."""
+    ll, la, ln, x, y, mask = _t(*_gp_case())
+    nll, L, z = kgp.gp_nll_chol_plain(ll, la, ln, x, y, mask)
+    cov = ref.masked_cov(ll, la, ln, x, mask)
+    np.testing.assert_allclose((L @ L.transpose(1, 2)).numpy(), cov.numpy(),
+                               atol=1e-5)
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    pad = mask[2] == 0
+    assert torch.equal(L[2][pad][:, pad], torch.eye(int(pad.sum())))
+    np.testing.assert_allclose((L @ z[..., None])[..., 0].numpy(),
+                               (y * mask).numpy(), atol=1e-5)
+    np.testing.assert_allclose(nll.numpy(),
+                               ref.gp_nll_ref(ll, la, ln, x, y, mask).numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_kernel_wrappers_reject_bad_inputs():
+    """On a CUDA tensor a wrapper launches or raises; on a device with
+    no kernel it raises instead of quietly falling back."""
+    ll, la, ln, x, y, mask = _t(*_gp_case())
+    meta = [t.to("meta") for t in (ll, la, ln, x, y, mask)]
+    with pytest.raises(ValueError, match="no kernel"):
+        kgp.gp_nll_chol(*meta)
+    with pytest.raises(TypeError):
+        kgp._check("x", x.double(), x.shape, x.device)
+    with pytest.raises(ValueError, match="contiguous"):
+        kgp._check("x", x.transpose(1, 2).contiguous().transpose(1, 2),
+                   x.shape, x.device)
+
+
+def test_cuda_kernels_match_oracles():
+    """The hand-written CUDA kernels against their plain versions on the
+    card (b = 16 and 64, ragged masks): rtol 1e-4 of the max-norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for b in (16, 64):
+        ll, la, ln, x, y, mask = (t.to(dev) for t in _t(*_gp_case(b=b)))
+        got = kgp.gp_nll_chol(ll, la, ln, x, y, mask)
+        want = kgp.gp_nll_chol_plain(ll, la, ln, x, y, mask)
+        for g, w in zip(got, want):
+            assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+        case = _gp_case(b=b)
+        factors = _posterior_factors(*case)
+        args = [t.to(dev) for t in _t(case[0], case[1], case[3], case[5],
+                                      *factors)]
+        ei, ei_ref = kgp.gp_ei(*args), ref.gp_ei_ref(*args)
+        assert float((ei - ei_ref).abs().max()) <= \
+            1e-4 * float(ei_ref.abs().max())
