@@ -13,9 +13,11 @@ script exits non-zero and prints no result):
    ``gp_ei`` over k lanes x b bucket (ragged masks, inert all-zero-mask
    lanes), each with its error, its time by CUDA events, its bound, the
    plain version's time and, where one PyTorch call computes the same
-   function, that call's time; then the GP numerics on the card against
-   the same numerics on the CPU at a small size, and the host wall time
-   of each GP call of the ask path at the paper's size, one thread alone.
+   function, that call's time; ``gp_ei`` alone also at b = 1024 (the
+   largest v tile shared memory holds) and 2048 (v in global scratch);
+   then the GP numerics on the card against the same numerics on the CPU
+   at a small size, and the host wall time of each GP call of the ask
+   path at the paper's size, one thread alone.
 3. the service at the paper's size — 4 concurrent ``gp`` experiments on
    one ``LocalClient`` with the prefetch pump on, each with the paper's
    budget of 300 and parallel 15 over the 3-parameter CNN space, driven
@@ -51,6 +53,10 @@ PEAK_BYTES = 3.35e12
 
 KS = (1, 4, 8, 16)
 BS = (16, 64, 256, 512)
+#: buckets past the paper's budget, for gp_ei alone (k = 1): 1024 is the
+#: largest whose v tile fits a block's shared memory, 2048 spills it to
+#: global scratch
+EI_BS = (1024, 2048)
 D = 3
 M = 1280            # candidate pool on the path: 1024 + 1024 // 4
 MAIN_NLL = (4, 512)  # (lanes, bucket) of a 4-experiment co-batched refit
@@ -98,6 +104,33 @@ def time_ms(fn, budget_s: float = 0.15) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def matern_flops(d: int) -> int:
+    """Operations of one Matérn-5/2 ARD entry: per dimension a
+    difference, a scaling and a multiply-add (3d); then the square root,
+    exponential and the polynomial around them (10)."""
+    return 3 * d + 10
+
+
+def nll_work(k: int, b: int, d: int):
+    """(FLOPs, bytes) ``gp_nll_chol`` needs: per lane the lower triangle
+    of the covariance, a Cholesky (b³/3), the forward solve (b²) and the
+    NLL; each input read once, (nll, L, z) written once."""
+    flops = k * (b * (b + 1) / 2 * matern_flops(d) + b ** 3 / 3 + b * b)
+    nbytes = 4 * (k * d + 2 * k + k * b * d + 2 * k * b      # in
+                  + k + k * b * b + k * b)                   # out
+    return flops, nbytes
+
+
+def ei_work(k: int, b: int, d: int, m: int):
+    """(FLOPs, bytes) ``gp_ei`` needs: per candidate its b covariance
+    entries, μ and Σv² (4b), the forward substitution (b²) and the closed
+    form; each input read once, ei written once."""
+    flops = k * m * (b * b + b * (matern_flops(d) + 4))
+    nbytes = 4 * (k * d + 4 * k + k * b * d + 2 * k * b
+                  + k * b * b + k * m * d + k * m)
+    return flops, nbytes
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -219,14 +252,8 @@ def phase_kernels():
                 ll, la, ln, x, y, mask))
             ei_ms = time_ms(lambda: kgp.gp_ei(*ei_args))
             ei_plain = time_ms(lambda: ref.gp_ei_ref(*ei_args))
-            n_flops = k * (b ** 3 / 3 + b * b * D) * 2
-            n_bytes = 4 * (k * D + 2 * k + k * b * D + 2 * k * b      # in
-                           + k + k * b * b + k * b)                   # out
-            n_bound, n_by = bound_ms(n_flops, n_bytes)
-            e_flops = k * M * (b * b + 2 * b * D) * 2
-            e_bytes = 4 * (k * D + 4 * k + k * b * D + 2 * k * b
-                           + k * b * b + k * M * D + k * M)
-            e_bound, e_by = bound_ms(e_flops, e_bytes)
+            n_bound, n_by = bound_ms(*nll_work(k, b, D))
+            e_bound, e_by = bound_ms(*ei_work(k, b, D, M))
             emit("kernel_case", k=k, b=b, d=D, m=M, limit=lim,
                  nll_rel_err=errs, grads_rel_err=g_err,
                  grads_rel_err_f64=g_err64, plain_grads_rel_err_f64=p_err64,
@@ -247,6 +274,27 @@ def phase_kernels():
                     plain_ms=ei_plain, bound_ms=e_bound, bound_by=e_by,
                     library_ms=None)
             torch.cuda.synchronize()
+    for b in EI_BS:
+        ll, la, ln, x, y, mask = gp_case(1, b, seed=b, dev=dev)
+        chol = ref.cholesky(ref.masked_cov(ll, la, ln, x, mask))
+        alpha = torch.cholesky_solve((y * mask)[..., None], chol)[..., 0]
+        rng = np.random.default_rng(b)
+        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+        ei_args = (ll, la, x, mask, chol.contiguous(), alpha.contiguous(),
+                   t(rng.standard_normal(1)), t(rng.uniform(0.5, 2.0, 1)),
+                   t(rng.random((1, M, D))), t(rng.standard_normal(1)))
+        ei = kgp.gp_ei(*ei_args)
+        torch.cuda.synchronize()
+        p_ei = ref.gp_ei_ref(*ei_args)
+        e_err = rel_err(ei, p_ei)
+        check(math.isfinite(e_err) and e_err <= 1e-3,
+              f"gp_ei k=1 b={b}: {e_err} > 1e-3")
+        e_bound, e_by = bound_ms(*ei_work(1, b, D, M))
+        emit("kernel_case_ei", k=1, b=b, d=D, m=M, limit=1e-3,
+             ei_rel_err=e_err, gp_ei_ms=time_ms(lambda: kgp.gp_ei(*ei_args)),
+             gp_ei_plain_ms=time_ms(lambda: ref.gp_ei_ref(*ei_args)),
+             gp_ei_bound_ms=e_bound, gp_ei_bound_by=e_by)
+        torch.cuda.synchronize()
     return summary
 
 
@@ -380,8 +428,7 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
             errors.append(f"{type(e).__name__}: {e}")
 
     # let one refit dispatch take every experiment's owed fit: the
-    # executor's dynamic cap starts at 2 lanes, and its one peer slot is
-    # as often taken by another experiment's queue-refill ask
+    # executor's dynamic cap starts at 2 lanes
     pipeline.FitExecutor.MAX_LANES = n_exp
     kgp.gp_nll_launches.reset()
     kgp.gp_ei_launches.reset()
@@ -432,12 +479,19 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     check(len(ids) == n_exp * budget and len(set(ids)) == len(ids),
           "duplicate or missing suggestion ids")
     check(all(math.isfinite(v) for v in values), "non-finite objective")
+    # the executor and the pumps catch what their jobs raise, to keep the
+    # service up; a kernel fault there must still fail this run
+    check(executor.get("failed", 0) == 0,
+          f"executor jobs failed: {executor.get('last_error')}")
+    for st in statuses:
+        check("pump_error" not in st.pump,
+              f"{st.exp_id}: pump died: {st.pump.get('pump_error')}")
     check(launches["gp_ei"] > 0, "gp_ei never launched on the main path")
+    # a lone refit autodiffs plain torch and the prewarm launches nothing,
+    # so gp_nll runs here only in refit dispatches of two lanes or more
     check(launches["gp_nll"] > 0, "gp_nll never launched on the main path")
-    # ``batched`` counts every executor fit dispatch, one lane or more;
-    # whether two experiments' refits met in one (``lanes`` above
-    # ``batched``) depends on timing and is reported, not required
-    check(executor.get("batched", 0) >= 1, "no executor refit dispatch")
+    check(executor.get("lanes", 0) > executor.get("batched", 0),
+          "no refit dispatch co-batched two experiments")
     return launches
 
 

@@ -183,6 +183,9 @@ class FitExecutor:
         self._heap: List[tuple] = []            # (prio, seq, key)
         self._jobs: Dict[Any, tuple] = {}       # key -> (prio, fn)
         self._active: set = set()               # keys running on a worker
+        # job kind -> key of the job whose worker is gathering peers of
+        # that kind; other workers leave such jobs for its batch
+        self._gathering: Dict[type, Any] = {}
         self._seq = 0
         self._stopped = False
         self.stats = {"executed": 0, "coalesced": 0, "requeued": 0,
@@ -324,19 +327,46 @@ class FitExecutor:
                         max_lanes=self._max_lanes_locked(duty))
 
     # ----------------------------------------------------------- workers
+    def _gathers(self, fn, prio: int) -> bool:
+        """Whether ``fn`` waits one GATHER_WINDOW for peers to join it."""
+        return (isinstance(fn, BatchableFit) and prio > PRIO_MISS
+                and self.GATHER_WINDOW > 0.0)
+
+    def _end_gather(self, fn, key) -> None:
+        """Hand ``fn``'s kind back to every worker (holding ``_cv``)."""
+        if self._gathering.get(type(fn)) == key:
+            del self._gathering[type(fn)]
+            self._cv.notify_all()
+
     def _pop(self):
         """Highest-priority live job, or None after an idle wait.  Heap
         entries whose key was cancelled/coalesced away (priority no
-        longer matching) are lazily skipped."""
+        longer matching) are lazily skipped.  A job of a kind another
+        worker is gathering peers of stays queued for that worker's batch
+        — a second worker popping it would dispatch it alone."""
         with self._cv:
             while not self._stopped:
+                held, found = [], None
                 while self._heap:
-                    prio, _, key = heapq.heappop(self._heap)
+                    entry = heapq.heappop(self._heap)
+                    prio, _, key = entry
                     cur = self._jobs.get(key)
-                    if cur is not None and cur[0] == prio:
-                        del self._jobs[key]
-                        self._active.add(key)
-                        return key, cur[1], prio
+                    if cur is None or cur[0] != prio:
+                        continue
+                    if type(cur[1]) in self._gathering:
+                        held.append(entry)
+                        continue
+                    found = (key, cur[1], prio)
+                    break
+                for entry in held:
+                    heapq.heappush(self._heap, entry)
+                if found is not None:
+                    key, fn, prio = found
+                    del self._jobs[key]
+                    self._active.add(key)
+                    if self._gathers(fn, prio):
+                        self._gathering[type(fn)] = key
+                    return found
                 self._cv.wait(self.IDLE_WAIT)
                 if not self._heap:
                     return None
@@ -362,6 +392,7 @@ class FitExecutor:
                 again = False
                 err = f"{type(e).__name__}: {e}"
             with self._cv:
+                self._end_gather(fn, key)   # if it ended before its grab
                 self._active.discard(key)   # before any re-submit
                 self._decay_duty(time.monotonic())
                 # gather-window sleeps are idle time, not fit work —
@@ -402,7 +433,7 @@ class FitExecutor:
         if lane is None:
             return False, 0.0
         slept = 0.0
-        if prio > PRIO_MISS and self.GATHER_WINDOW > 0.0:
+        if self._gathers(fn, prio):
             # deliberate plain sleep (not a _cv wait): we *want* to stay
             # out of the way while pumps enqueue peers
             time.sleep(self.GATHER_WINDOW)
@@ -414,10 +445,14 @@ class FitExecutor:
                 if 1 + len(grabbed) >= lanes_cap:
                     break
                 p2, f2 = self._jobs[k2]
-                if isinstance(f2, BatchableFit):
+                # same kind only: a fit and a refill ask never share a
+                # group, so grabbing the other kind wastes a peer slot and
+                # a snapshot under that experiment's optimizer lock
+                if type(f2) is type(fn):
                     del self._jobs[k2]
                     self._active.add(k2)
                     grabbed.append((k2, p2, f2))
+            self._end_gather(fn, key)
         lanes = [(key, lane)]
         for k2, p2, f2 in grabbed:
             try:

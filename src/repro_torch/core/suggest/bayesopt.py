@@ -207,7 +207,7 @@ class BayesOpt(Optimizer):
         self._lie_seq = 0
         self._xs: List[np.ndarray] = []        # unit coords of successes
         self._ys: List[float] = []
-        self._prewarmed = 0                    # largest bucket compiled
+        self._prewarmed = 0                    # largest bucket prewarmed
         # Service pipeline mode (set by the prefetch pump): ask() never
         # runs a hyperparameter fit once warm-started — new observations
         # are folded by an exact recondition at the current
@@ -236,10 +236,10 @@ class BayesOpt(Optimizer):
         return self._warm_steps_at(len(self._ys))
 
     def _warm_steps_at(self, n: int) -> int:
-        """The schedule as a pure function of history size (``prewarm``
-        evaluates it at future sizes).  A halving ladder, not a smooth
-        1/n, kept from the reference so both packages fit with the same
-        step counts at the same history sizes."""
+        """The schedule as a pure function of history size.  A halving
+        ladder, not a smooth 1/n, kept from the reference so both
+        packages fit with the same step counts at the same history
+        sizes."""
         s = self.warm_fit_steps
         if not self.adaptive:
             return s
@@ -280,35 +280,19 @@ class BayesOpt(Optimizer):
 
     # ------------------------------------------------------------------
     def prewarm(self, max_history: int, batch: int = 8) -> int:
-        """Run every GP path of the ask once for each power-of-two
-        bucket up to ``bucket_size(max_history)`` (``gp.prewarm_bucket``:
-        the fit, the lane-batched fit at lane pad 1, the rank-1 appends,
-        the q-EI scan for every batch pad up to ``batch`` and the batched
-        scan at lane pads 1 and 2), so the one-time work — the CUDA
-        kernels' build and load, library handles, first allocations at
-        each bucket's sizes — lands off the request path.  Touches no
-        optimizer state — safe to call from a background thread while
-        ``ask``/``tell`` run elsewhere."""
+        """Prewarm each power-of-two bucket up to
+        ``bucket_size(max_history)`` (``gp.prewarm_bucket``), so the
+        one-time work — the CUDA kernels' build and load, PyTorch's CUDA
+        linear algebra, a first allocation at each bucket's size — lands
+        off the request path.  Touches no optimizer state — safe to call
+        from a background thread while ``ask``/``tell`` run elsewhere."""
         target = gp.bucket_size(max(1, int(max_history)))
-        k_pads, kp = [], 1
-        pad_max = 1 << max(0, int(batch) - 1).bit_length()
-        while kp <= pad_max:
-            k_pads.append(kp)
-            kp *= 2
-        m = self.n_candidates + self.n_candidates // 4
         warmed = 0
         b = gp.MIN_BUCKET
         while b <= target:
             if b > self._prewarmed:
-                # only the warm-step ladder values reachable while the
-                # history lives in this bucket (plus the cold fit) — not
-                # the whole ladder per bucket
-                gp.prewarm_bucket(len(self.space), b,
-                                  fit_steps=(self.fit_steps,
-                                             self._warm_steps_at(b // 2),
-                                             self._warm_steps_at(b)),
-                                  k_pads=k_pads, n_cand=m, fit_lanes=(1,),
-                                  select_lanes=(1, 2), device=self.device)
+                gp.prewarm_bucket(len(self.space), b, fit_lanes=(1,),
+                                  device=self.device)
                 warmed += 1
             b *= 2
         self._prewarmed = max(self._prewarmed, target)

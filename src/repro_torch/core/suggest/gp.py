@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.kernels import _build as _kbuild
 from repro_torch.kernels import ops as _kops
 from repro_torch.kernels import ref as _kref
 
@@ -419,41 +420,20 @@ def sparse_posterior(params: GPParams, x: np.ndarray, y: np.ndarray,
 def prewarm_bucket(d: int, bucket: int, fit_steps=(), k_pads=(),
                    n_cand: int = 64, fit_lanes=(), select_lanes=(),
                    device=None) -> None:
-    """Run every path of the ask for one bucket shape once, on throwaway
-    data: the hyperparameter fit, the lane-batched fit for each
-    ``fit_lanes`` pad, the exact posterior, the rank-1 appends, the q-EI
-    scan for each ``k_pads`` entry at the real pool size ``n_cand``, and
-    the batched scan for each ``select_lanes`` pad.  Eager PyTorch
-    compiles nothing per shape, so one fit step stands for every
-    ``fit_steps`` entry; what the pass moves off the request path is the
-    one-time work — the CUDA kernels' build and load, the cuBLAS and
-    cuSOLVER handles, the caching allocator's first blocks at this
-    bucket's sizes.  Idempotent and cheap to repeat."""
+    """Move the ask path's one-time work at one bucket shape off the
+    request path.  Eager PyTorch compiles nothing per shape, so what is
+    left is loading PyTorch's CUDA linear algebra (``resolve``), building
+    and loading the CUDA kernels (once a process), and one allocation of
+    the bucket's largest buffer — the lane-batched (lanes, b, b) factor —
+    so the caching allocator holds a block of that size.  Runs no fit and
+    launches no kernel, so the launch counters see only real work.  The
+    signature is the reference's; ``fit_lanes`` sizes the allocation and
+    the other shape arguments are not needed here."""
     dev = resolve(device)
-    x = np.zeros((2, d), np.float64)
-    x[1] = 0.5
-    y = np.array([0.0, 1.0], np.float64)
-    post = None
-    if fit_steps:
-        post = fit_gp(x, y, steps=1, bucket=bucket, device=dev)
-        for lanes in sorted({lane_pad(int(kp)) for kp in fit_lanes}):
-            batched_fit([(x, y, None)] * lanes, steps=1, bucket=bucket,
-                        device=dev)
-    if post is None:
-        z = torch.zeros((), dtype=DTYPE, device=dev)
-        post = make_posterior(GPParams(torch.zeros(d, dtype=DTYPE,
-                                                   device=dev), z, z),
-                              x, y, bucket=bucket)
-    # match the real call signatures exactly (host numpy float32 inputs)
-    append_point(post, np.asarray(x[0], np.float32), np.float32(0.5))
-    append_lie(post, np.asarray(x[0], np.float32))
-    cand = np.zeros((n_cand, d), np.float32)
-    for kp in sorted({int(k) for k in k_pads}):
-        if kp + 2 <= bucket:    # the scan needs kp free padded slots
-            select_batch(post, cand, np.float32(1.0), kp)
-    if SELECT_PAD + 2 <= bucket:
-        for lanes in sorted({lane_pad(int(s)) for s in select_lanes}):
-            batched_select([(post, cand, np.float32(1.0), 1)] * lanes)
+    if dev.type == "cuda":
+        _kbuild.build_all()
+    lanes = max([lane_pad(int(k)) for k in fit_lanes] or [1])
+    torch.empty((lanes, bucket, bucket), dtype=DTYPE, device=dev)
 
 
 # ---------------------------------------------------------------- queries

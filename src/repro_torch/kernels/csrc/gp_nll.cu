@@ -6,8 +6,10 @@
 // kernel.
 //
 // What bounds it on this card: the factorization is a chain of b
-// dependent column steps.  The arithmetic, about k*(b^3/3 + b^2*d)*2
-// FLOPs, takes microseconds at the 67 TFLOP/s f32 (non-tensor) peak, and
+// dependent column steps.  The arithmetic, about
+// k*(b^3/3 + b^2 + b^2/2*(3d + 10)) FLOPs (the factorization, the solve
+// and the covariance's lower triangle), takes microseconds at the
+// 67 TFLOP/s f32 (non-tensor) peak, and
 // the bytes (inputs plus the k*b*b*4 factor written out) take about as
 // long at 3.35 TB/s; the kernel is bound by neither but by latency: each
 // column step is two block-wide barriers plus one pass over the trailing

@@ -12,7 +12,9 @@ experiments run in one launch:
   as the reference's custom_vjp backward is plain jnp.
 * ``gp_ei`` — batched expected improvement: per lane, the cross
   covariance, the forward substitution for the predictive variance and
-  the EI closed form, one thread per candidate (``csrc/gp_ei.cu``).
+  the EI closed form, one thread per candidate (``csrc/gp_ei.cu``); any
+  bucket, its substituted columns in shared memory up to b = 1024 and in
+  a global scratch buffer past that.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors — there is no fall-back: on a CUDA
@@ -60,7 +62,7 @@ _BOUND = {}
 _BIND_LOCK = threading.Lock()
 
 
-def _fn(lib_name: str, sym: str, argtypes):
+def _fn(lib_name: str, sym: str, argtypes, restype=ctypes.c_int):
     """The C entry point ``sym`` of one kernel library, typed once."""
     fn = _BOUND.get(sym)
     if fn is None:
@@ -69,7 +71,7 @@ def _fn(lib_name: str, sym: str, argtypes):
             if fn is None:
                 fn = getattr(library(lib_name), sym)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = restype
                 _BOUND[sym] = fn
     return fn
 
@@ -211,19 +213,22 @@ def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand, best,
                            ("y_std", y_std, (k,)), ("cand", cand, (k, m, d)),
                            ("best", best, (k,))):
         _check(name, t, shape, dev)
-    if b * 32 * 4 > 232448:
-        raise ValueError(f"gp_ei: bucket {b} needs more shared memory than "
-                         f"a block has (b <= 1816)")
     ei = torch.empty((k, m), dtype=torch.float32, device=dev)
     fn = _fn("gp_ei", "gp_ei_launch",
-             [_P] * 11 + [_I] * 4 + [ctypes.c_float, _P])
+             [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P])
+    n_scratch = _fn("gp_ei", "gp_ei_scratch_floats", [_I] * 3,
+                    ctypes.c_longlong)(k, b, m)
+    # past what a block's shared memory holds, v spills to global scratch
+    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=dev)
+               if n_scratch else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(log_ls.data_ptr(), log_amp.data_ptr(), x.data_ptr(),
                  mask.data_ptr(), chol.data_ptr(), alpha.data_ptr(),
                  y_mean.data_ptr(), y_std.data_ptr(), cand.data_ptr(),
-                 best.data_ptr(), ei.data_ptr(), k, b, d, m, float(xi),
-                 stream)
+                 best.data_ptr(), ei.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None,
+                 k, b, d, m, float(xi), stream)
     _raise_on(err, "gp_ei")
     gp_ei_launches.add()
     return ei

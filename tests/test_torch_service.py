@@ -7,6 +7,7 @@ import json
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -151,6 +152,45 @@ def test_two_experiments_cobatch_refits():
         assert all(opt._fits == 1 and opt._params is not None
                    for opt in opts)
         assert all(opt.fit_spec() is None for opt in opts)   # debt paid
+    finally:
+        ex.stop()
+        pipeline.FitExecutor.GATHER_WINDOW = old_window
+
+
+def _fake_job(dispatches, kind="fit"):
+    """A batchable executor job whose runner records its lane count."""
+    spec = types.SimpleNamespace(
+        kind=kind, group_key=kind,
+        runner=lambda specs: (dispatches.append(len(specs))
+                              or [None] * len(specs), 0.0))
+    lane = pipeline.FitLane(spec, lambda params, seconds: None)
+    cls = pipeline.BatchableAsk if kind == "ask" else pipeline.BatchableFit
+    return cls(lambda: lane)
+
+
+def test_gathering_worker_keeps_late_peers():
+    """With two workers, a fit that arrives while one worker gathers
+    peers joins that worker's batch instead of being dispatched alone by
+    the idle worker, and a queued refill ask is never taken as a fit
+    peer (nor a fit as an ask peer)."""
+    fits, asks = [], []
+    old_window = pipeline.FitExecutor.GATHER_WINDOW
+    pipeline.FitExecutor.GATHER_WINDOW = 0.5
+    ex = pipeline.FitExecutor(workers=2)
+    try:
+        ex.submit(("fit", 0), _fake_job(fits), pipeline.PRIO_IDLE)
+        time.sleep(0.05)        # one worker pops it and starts gathering
+        ex.submit(("fit", 1), _fake_job(fits), pipeline.PRIO_IDLE)
+        time.sleep(0.05)        # the idle worker has seen it
+        ex.submit(("ask", 0), _fake_job(asks, "ask"), pipeline.PRIO_REFILL)
+        deadline = time.time() + 30
+        while ex.snapshot()["executed"] < 3 and time.time() < deadline:
+            time.sleep(0.01)
+        stats = ex.snapshot()
+        assert fits == [2] and asks == [1], (fits, asks)
+        assert (stats["batched"], stats["lanes"]) == (1, 2), stats
+        assert (stats["batched_asks"], stats["ask_lanes"]) == (1, 1), stats
+        assert stats.get("failed", 0) == 0, stats
     finally:
         ex.stop()
         pipeline.FitExecutor.GATHER_WINDOW = old_window
