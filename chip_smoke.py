@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port of the suggestion service on one NVIDIA card.
+"""Drive the PyTorch/CUDA port on one NVIDIA card: the GP suggestion
+service and the LM server.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -25,6 +26,34 @@ script exits non-zero and prints no result):
    objective (held for ``TRIAL_SECONDS`` as a trial would be) and
    observe.  The kernels' launch counters are zeroed just
    before and read just after.
+4. the LM kernels against their plain PyTorch versions on the card —
+   ``flash_attention`` at the serve shape (B 4, S 3000, H 10, K 1, D 256,
+   window 2048) in bf16 and f32, at S = 4096, at granite-8b's shape, with
+   a softcap, ragged (Sq != Skv, not tile multiples) and at D = 64 and 16;
+   ``rglru_scan`` at the serve shape and a ragged one — each with its
+   error, its time by CUDA events, its bound, the plain version's time and
+   ``F.scaled_dot_product_attention``'s (band mask, ``enable_gqa``) as the
+   library yardstick for attention.  Attention is held element by element
+   against the float32 oracle on the same inputs, and at the serve shape
+   three faults planted into the plain version (a key or the oldest tile
+   of the band missing, no window) must fail that limit.
+5. the LM server at full width — ``serve("recurrentgemma-2b", batch=4,
+   prompt_len=3000, gen=64, reduced=False)`` with random weights from its
+   seed: exactly 8 ``flash_attention`` and 18 ``rglru_scan`` launches in
+   the prefill and none in decode (counters zeroed just before, read just
+   after); then the same weights and prompts once more with the two ops
+   swapped for their plain versions, and once in float32 with the plain
+   versions, both fed the served tokens: the kernel path may be no
+   further from the float32 model than 1.25x the plain bf16 path's
+   distance from it (bf16's own error on these weights sets the scale)
+   by relative norm at the output of every attention and RG-LRU layer of
+   the prefill, and 2x by max |logits| at the prefill and every decode
+   step.
+   A fault planted in each kernel's place (attention with no window,
+   the scan one step late) must fail the per-layer limit; whether the
+   logits limit sees it is recorded.  Last, one more prefill and 8
+   decode steps under torch.profiler: the device's busy time and idle
+   share, and its kernels by device time.
 
 The last lines are the kernels' summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Details go to
@@ -32,9 +61,12 @@ and ``{"ok": true, "device": {...}}``.  Details go to
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -49,6 +81,7 @@ import torch  # noqa: E402
 
 #: published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 KS = (1, 4, 8, 16)
@@ -79,6 +112,19 @@ def emit(phase: str, **fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set attributes of ``obj`` for the length of a ``with`` block."""
+    old = {name: getattr(obj, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(obj, name, value)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -133,8 +179,8 @@ def ei_work(k: int, b: int, d: int, m: int):
     return flops, nbytes
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -495,6 +541,448 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     return launches
 
 
+# ------------------------------------------------------------- phase 4
+#: (name, B, Sq, Skv, H, K, D, causal, window, softcap, dtype); the first
+#: is the serve shape of recurrentgemma-2b's local attention
+FLASH_CASES = (
+    ("serve", 4, 3000, 3000, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
+    ("serve_f32", 4, 3000, 3000, 10, 1, 256, True, 2048, 0.0, "float32"),
+    ("s4096", 4, 4096, 4096, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
+    ("granite", 1, 4096, 4096, 32, 8, 128, True, 0, 0.0, "bfloat16"),
+    ("softcap", 2, 1024, 1024, 8, 2, 128, True, 0, 50.0, "bfloat16"),
+    ("ragged", 2, 1000, 1500, 8, 2, 64, True, 300, 0.0, "float32"),
+    ("ragged_noncausal", 3, 777, 555, 4, 4, 16, False, 0, 0.0, "float32"),
+)
+#: (name, B, S, R); the first is the serve shape of an RG-LRU layer
+SCAN_CASES = (("serve", 4, 3000, 2560), ("ragged", 3, 1001, 1000))
+#: element-wise limit (rtol, c) of the kernel against the float32 oracle
+#: on the same inputs: |out - ref32| <= rtol |ref32| + c rms(ref32's row),
+#: a row being one (batch, query, head) output vector.  bf16: one rounding
+#: of the output (2^-8 relative) and a 2^-10 share of the row's size for
+#: float32 sums in another order; f32: sums in another order only
+FLASH_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -8, 2.0 ** -10)}
+#: max |sdpa - plain| / max |plain| for the library yardstick, which in
+#: bf16 rounds its probabilities before the product: a sanity check that
+#: it computes the same function, not a limit on the port
+SDPA_LIMIT = {"float32": 5e-4, "bfloat16": 5e-2}
+#: faults planted into the plain version at the serve shape, each of
+#: which the element-wise limit must reject: the window one key short,
+#: the oldest 64-key tile of every full band dropped, no window at all
+FLASH_FAULTS = {"window_minus_1": -1, "oldest_tile_dropped": -64,
+                "no_window": None}
+SCAN_LIMIT = 1e-5
+
+
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through, counted per query."""
+    total = 0
+    for q in range(Sq):
+        hi = min(q + 1, Skv) if causal else Skv
+        lo = max(0, q - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def flash_excess(out, ref32, dtype: str) -> float:
+    """The largest ratio of |out - ref32| to its element-wise limit
+    (``FLASH_TOL``); at most 1 when ``out`` agrees everywhere."""
+    rtol, c = FLASH_TOL[dtype]
+    ref32 = ref32.float()
+    rms = ref32.square().mean(-1, keepdim=True).sqrt()
+    lim = rtol * ref32.abs() + c * rms
+    return float(((out.float() - ref32).abs() / lim.clamp(min=1e-30)).max())
+
+
+def band_mask(Sq, Skv, causal, window, dev):
+    qp = torch.arange(Sq, device=dev)[:, None]
+    kp = torch.arange(Skv, device=dev)[None, :]
+    m = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        m &= qp >= kp
+    if window:
+        m &= (qp - kp) < window
+    return m
+
+
+def phase_lm_kernels():
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as krg
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    summary = {}
+    for (name, B, Sq, Skv, H, K, D, causal, window, cap,
+         dtype) in FLASH_CASES:
+        gen.manual_seed(Sq + Skv + D)
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Skv, K, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Skv, K, D), generator=gen, device=dev).to(dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out = kfa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        err = rel_err(out.float(), want.float())
+        abs_err = float((out.float() - want.float()).abs().max())
+        ref32 = (want if dtype == "float32" else ref.flash_attention_ref(
+            q.float(), k.float(), v.float(), **kw))
+        excess = flash_excess(out, ref32, dtype)
+        check(math.isfinite(excess) and excess <= 1.0,
+              f"flash_attention {name}: {excess} x its element-wise limit")
+        planted = {}
+        if name == "serve":
+            # the limit must see a tile or a key of the band go missing
+            for fault, dw in FLASH_FAULTS.items():
+                bad = ref.flash_attention_ref(
+                    q, k, v, causal=causal, softcap=cap,
+                    window=0 if dw is None else window + dw)
+                planted[fault] = flash_excess(bad, ref32, dtype)
+                check(planted[fault] > 1.0,
+                      f"planted fault {fault} passes: {planted[fault]}")
+                del bad
+        del ref32
+        lib_ms = lib_err = None
+        if not cap:  # SDPA has no softcap
+            mask = band_mask(Sq, Skv, causal, window, dev)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(D),
+                enable_gqa=True)
+            lib_err = rel_err(sdpa().transpose(1, 2).float(), want.float())
+            check(lib_err <= SDPA_LIMIT[dtype],
+                  f"sdpa {name} disagrees: {lib_err}")
+            lib_ms = time_ms(sdpa)
+        del want
+        ms = time_ms(lambda: kfa.flash_attention(q, k, v, **kw))
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw))
+        pairs = visible_pairs(Sq, Skv, causal, window)
+        flops = 4 * B * H * D * pairs
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype ==
+                             "bfloat16" else PEAK_F32_FLOPS)
+        emit("flash_case", case=name, B=B, Sq=Sq, Skv=Skv, H=H, K=K, D=D,
+             causal=causal, window=window, softcap=cap, dtype=dtype,
+             tol=FLASH_TOL[dtype], excess=excess, planted_excess=planted,
+             rel_err=err, max_abs_err=abs_err, ms=ms,
+             plain_ms=plain_ms, sdpa_ms=lib_ms, sdpa_rel_err=lib_err,
+             bound_ms=bound, bound_by=by, gflop=flops / 1e9,
+             mbytes=nbytes / 1e6)
+        if name == "serve":
+            summary["flash_attention"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    for name, B, S, R in SCAN_CASES:
+        gen.manual_seed(S + R)
+        la = -0.5 * torch.rand((B, S, R), generator=gen, device=dev)
+        b = torch.randn((B, S, R), generator=gen, device=dev)
+        h = krg.rglru_scan(la, b)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_ref(la, b)
+        abs_err = float((h - want).abs().max())
+        lim = SCAN_LIMIT * max(1.0, float(want.abs().max()))
+        check(math.isfinite(abs_err) and abs_err <= lim,
+              f"rglru_scan {name}: {abs_err} > {lim}")
+        ms = time_ms(lambda: krg.rglru_scan(la, b))
+        plain_ms = time_ms(lambda: ref.rglru_scan_ref(la, b))
+        bound, by = bound_ms(3 * B * S * R, 12 * B * S * R)
+        emit("rglru_case", case=name, B=B, S=S, R=R, limit=lim,
+             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+             bound_by=by, library_ms=None)
+        if name == "serve":
+            summary["rglru_scan"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+    return summary
+
+
+# ------------------------------------------------------------- phase 5
+SERVE = dict(arch="recurrentgemma-2b", batch=4, prompt_len=3000, gen=64,
+             reduced=False)
+#: what recurrentgemma-2b's 26 layers launch in one prefill: 8 local
+#: attention layers, 18 RG-LRU layers
+PREFILL_LAUNCHES = {"flash_attention": 8, "rglru_scan": 18}
+#: how much further than the plain bf16 path the kernel path may be from
+#: the float32 model: per mixing layer of the prefill, by relative norm
+#: (both paths share every bf16 matmul, and the H100 put them within
+#: 0.6% of each other at all 26 layers), and on the logits by max |.|,
+#: where one bf16 step of the largest logit decides and the first limit,
+#: 1x, failed at decode step 9
+LAYER_FACTOR = 1.25
+LOGITS_FACTOR = 2.0
+#: decode steps traced after the traced prefill
+PROFILED_STEPS = 8
+
+
+def device_profile(run, top: int = 12):
+    """Run ``run`` under torch.profiler: its wall time (ms, synchronised,
+    with the profiler's own host cost), the device's busy time (the union
+    of its kernels' spans, ms) and its kernels by device time, the most
+    first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in kernels):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy / 1e3,
+                device_idle_share=1.0 - busy / 1e3 / wall_ms,
+                device_kernels=len(kernels),
+                top=[dict(kernel=name[:90], ms=ms, launches=n)
+                     for name, (ms, n) in ranked])
+
+
+def phase_serve():
+    """The LM server at full width through ``serve``, spied on at
+    ``LM.prefill`` and ``LM.decode_step`` for its logits and the launch
+    counts of its prefill; then the same weights and prompts through the
+    plain versions, in float32 and in bf16, fed the served tokens, and
+    through each planted fault."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as krg
+    from repro_torch.launch import serve as srv
+    from repro_torch.launch.steps import cast_params
+    from repro_torch.models import attention as MA
+    from repro_torch.models import model as M
+    from repro_torch.models import recurrent as MR
+
+    counters = {"flash_attention": kfa.flash_attention_launches,
+                "rglru_scan": krg.rglru_scan_launches}
+    counts = lambda: {n: c.count for n, c in counters.items()}  # noqa: E731
+    seen = {"steps": []}
+    prefill, decode_step = M.LM.prefill, M.LM.decode_step
+
+    def spy_prefill(self, params, batch, cache_len):
+        # the weights are made by now: the peak from here on is serving's
+        seen["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        cache, logits = prefill(self, params, batch, cache_len)
+        seen.update(params=params, tokens=batch["tokens"],
+                    cache_len=cache_len, logits=logits.float().clone(),
+                    prefill_launches=counts())
+        return cache, logits
+
+    def spy_decode(self, params, cache, tokens):
+        logits, cache = decode_step(self, params, cache, tokens)
+        seen["steps"].append((tokens.clone(), logits.float().clone()))
+        return logits, cache
+
+    lines = []
+    # what earlier phases still hold; the peaks below include it
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    M.LM.prefill, M.LM.decode_step = spy_prefill, spy_decode
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        seqs = srv.serve(SERVE["arch"], SERVE["batch"], SERVE["prompt_len"],
+                         SERVE["gen"], reduced=SERVE["reduced"], seed=0,
+                         log=lines.append)
+        wall = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        M.LM.prefill, M.LM.decode_step = prefill, decode_step
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m = re.search(r"in ([\d.]+)ms; decoded (\d+) steps in ([\d.]+)ms "
+                  r"\(([\d.]+) tok/s\)", lines[-1])
+    check(m is not None, f"serve's log line: {lines}")
+    prefill_ms, decode_ms, tok_s = (float(m.group(1)), float(m.group(3)),
+                                    float(m.group(4)))
+    check(seqs.shape == (SERVE["batch"], SERVE["gen"]),
+          f"served tokens {seqs.shape}")
+    check(seen["prefill_launches"] == PREFILL_LAUNCHES,
+          f"prefill launches {seen['prefill_launches']}")
+    check(launches == PREFILL_LAUNCHES,
+          f"decode launched kernels: {launches} after the prefill's "
+          f"{seen['prefill_launches']}")
+    check(len(seen["steps"]) == SERVE["gen"] - 1, "decode steps missing")
+    served = [torch.as_tensor(seqs[:, i], device=seen["tokens"].device)
+              for i in range(SERVE["gen"])]
+    check(all(torch.equal(t, s) for (t, _), s in
+              zip(seen["steps"], served[:-1])), "decode fed other tokens")
+    kernel_logits = [seen["logits"]] + [lg for _, lg in seen["steps"]]
+    check(all(bool(torch.isfinite(lg).all()) for lg in kernel_logits),
+          "non-finite logits")
+
+    cfg = get_config(SERVE["arch"])
+    if SERVE["reduced"]:
+        cfg = cfg.reduced()
+    params, tokens = seen["params"], seen["tokens"]
+
+    def forced(model, params, steps=len(served) - 1):
+        """Prefill and ``steps`` decode steps fed the served tokens ->
+        every logits."""
+        with torch.inference_mode():
+            cache, logits = model.prefill(params, {"tokens": tokens},
+                                          seen["cache_len"])
+            out = [logits.float()]
+            for tok in served[:steps]:
+                logits, cache = model.decode_step(params, cache, tok)
+                out.append(logits.float())
+        return out
+
+    def mixing_layers(ref32=None):
+        """Spies on the prefill's mixing layers (attention and RG-LRU,
+        the layers that own the kernels) in stack order: their outputs
+        as float32 when ``ref32`` is None, else each output's relative
+        distance ||y - y32|| / ||y32|| from the float32 model's."""
+        got = []
+
+        def spy(fn):
+            def spied(*args, **kwargs):
+                y, entry = fn(*args, **kwargs)
+                if ref32 is None:
+                    got.append(y.float())
+                else:
+                    r = ref32[len(got)]
+                    got.append(float(torch.linalg.vector_norm(y.float() - r)
+                                     / torch.linalg.vector_norm(r)))
+                return y, entry
+            return spied
+        return got, (patched(MA, attn_forward=spy(MA.attn_forward)),
+                     patched(MR, rglru_forward=spy(MR.rglru_forward)))
+
+    def run_spied(model, params, ref32=None, steps=len(served) - 1):
+        got, (pa, pr) = mixing_layers(ref32)
+        with pa, pr:
+            logits = forced(model, params, steps)
+        return logits, got
+
+    fa, rg = ops.flash_attention, ops.rglru_scan
+    for c in counters.values():
+        c.reset()
+    with patched(ops, flash_attention=ref.flash_attention_ref,
+                 rglru_scan=ref.rglru_scan_ref):
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        f32, layers32 = run_spied(M.LM(cfg32),
+                                  cast_params(params, torch.float32))
+        t0 = time.perf_counter()
+        plain, plain_rel = run_spied(M.LM(cfg), params, layers32)
+        plain_s = time.perf_counter() - t0
+    check(counts() == {n: 0 for n in counters},
+          f"the plain runs launched kernels: {counts()}")
+    # the kernel path once more, spied: it must be the served run again
+    again, kernel_rel = run_spied(M.LM(cfg), params, layers32, steps=0)
+    check(torch.equal(again[0], seen["logits"]),
+          "the spied kernel prefill differs from the served one")
+    # Both paths round to bf16 at every layer, and a one-step difference
+    # anywhere (the kernel's float32 sums run in another order) soon
+    # decorrelates that rounding, so the kernel path is held to the
+    # float32 model at a multiple of the plain bf16 path's own distance
+    # from it: per mixing layer of the prefill, by relative norm, and per
+    # step on the logits.
+    def layers_ok(rel):
+        return all(k <= LAYER_FACTOR * p for k, p in zip(rel, plain_rel))
+
+    k_err = [float((a - b).abs().max()) for a, b in zip(kernel_logits, plain)]
+    k_err32 = [float((a - c).abs().max()) for a, c in zip(kernel_logits, f32)]
+    bf16_err = [float((b - c).abs().max()) for b, c in zip(plain, f32)]
+
+    def logits_ok(logits):
+        return all(float((a - c).abs().max()) <= LOGITS_FACTOR * be
+                   for a, c, be in zip(logits, f32, bf16_err))
+
+    check(len(kernel_rel) == len(plain_rel) == len(cfg.pattern),
+          f"spied {len(kernel_rel)} mixing layers")
+    for i, (ke, pe) in enumerate(zip(kernel_rel, plain_rel)):
+        check(ke <= LAYER_FACTOR * pe, f"layer {i} ({cfg.pattern[i]}): "
+              f"|kernel - f32| {ke} > {LAYER_FACTOR} x |plain - f32| {pe}")
+    for i, (ke, be) in enumerate(zip(k_err32, bf16_err)):
+        check(ke <= LOGITS_FACTOR * be, f"logits "
+              f"{'prefill' if i == 0 else f'step {i}'}: |kernel - f32| {ke} "
+              f"> {LOGITS_FACTOR} x |plain - f32| {be}")
+    # Plant a fault in each kernel's place and show that the per-layer
+    # limit rejects it; record whether the logits limit would.
+    faults = {
+        "flash_no_window": dict(flash_attention=lambda q, k, v, *, causal,
+                                window, softcap: fa(
+                                    q, k, v, causal=causal, window=0,
+                                    softcap=softcap)),
+        "rglru_one_step_late": dict(rglru_scan=lambda la, b: F.pad(
+            rg(la, b)[:, :-1], (0, 0, 1, 0))),
+    }
+    planted = {}
+    for fault, swap in faults.items():
+        with patched(ops, **swap):
+            logits, rel = run_spied(M.LM(cfg), params, layers32, steps=0)
+        first = next((i for i, (fe, pe) in enumerate(zip(rel, plain_rel))
+                      if fe > LAYER_FACTOR * pe), None)
+        planted[fault] = dict(
+            layers_reject=not layers_ok(rel), first_layer_rejected=first,
+            worst_layer_ratio=max(fe / max(pe, 1e-30)
+                                  for fe, pe in zip(rel, plain_rel)),
+            logits_reject=not logits_ok(logits),
+            prefill_logits_abs_err_vs_f32=float(
+                (logits[0] - f32[0]).abs().max()))
+        check(planted[fault]["layers_reject"],
+              f"planted fault {fault} passes the per-layer limit: "
+              f"{planted[fault]}")
+    model = M.LM(cfg)
+    prof_cache = {}
+
+    def profiled_prefill():
+        with torch.inference_mode():
+            prof_cache["c"], _ = model.prefill(params, {"tokens": tokens},
+                                               seen["cache_len"])
+
+    def profiled_decode():
+        with torch.inference_mode():
+            cache = prof_cache["c"]
+            for tok in served[:PROFILED_STEPS]:
+                _, cache = model.decode_step(params, cache, tok)
+
+    profiles = {"prefill": device_profile(profiled_prefill),
+                f"decode_{PROFILED_STEPS}_steps":
+                    device_profile(profiled_decode)}
+    for name, prof in profiles.items():
+        emit("serve_profile", part=name, **prof)
+    agree = [int((torch.argmax(p, -1) == s).sum()) for p, s in
+             zip(plain, served)]
+    agree32 = [int((torch.argmax(p, -1) == s).sum()) for p, s in
+               zip(f32, served)]
+    emit("serve", **SERVE, wall_s=wall, prefill_ms=prefill_ms,
+         decode_ms=decode_ms, decode_tok_s=tok_s,
+         decode_steps=int(m.group(2)), resident_before_gb=resident_gb,
+         peak_memory_gb=peak_gb,
+         init_peak_memory_gb=seen["init_peak_gb"],
+         params=sum(t.numel() for t in M.tensors(params)),
+         param_gb=sum(t.numel() * t.element_size()
+                      for t in M.tensors(params)) / 1e9,
+         prefill_launches=seen["prefill_launches"], launches=launches,
+         logits_abs_err_kernel_vs_plain=k_err,
+         logits_abs_err_kernel_vs_f32=k_err32,
+         logits_abs_err_plain_vs_f32=bf16_err,
+         layer_rel_err_kernel_vs_f32=kernel_rel,
+         layer_rel_err_plain_vs_f32=plain_rel,
+         planted_faults=planted,
+         greedy_agree_plain=sum(agree), greedy_agree_f32=sum(agree32),
+         greedy_total=int(seqs.size), plain_forced_s=plain_s,
+         first_tokens=seqs[:, :8].tolist())
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -504,6 +992,8 @@ def main() -> int:
     phase_gp_parity()
     phase_gp_host()
     launches = phase_service()
+    summary.update(phase_lm_kernels())
+    launches.update(phase_serve())
     kernels = [
         dict(name="gp_nll", route="cuda",
              source="src/repro_torch/kernels/csrc/gp_nll.cu",
@@ -513,6 +1003,15 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/gp_ei.cu",
              replaces="src/repro/kernels/gp.py:254",
              launches=launches["gp_ei"], **summary["gp_ei"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:97",
+             launches=launches["flash_attention"],
+             **summary["flash_attention"]),
+        dict(name="rglru_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan.py:40",
+             launches=launches["rglru_scan"], **summary["rglru_scan"]),
     ]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

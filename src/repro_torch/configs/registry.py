@@ -1,0 +1,30 @@
+"""Architecture registry of the port: the architectures it runs.
+
+The reference's registry has ten; the port lists only those whose layers
+it has ported (the dense and hybrid families).  Asking for any other name
+raises, naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.common import ModelConfig
+
+_MODULES = {
+    "granite-8b": "granite_8b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+}
+
+
+def list_archs():
+    return list(_MODULES)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in _MODULES:
+        raise NotImplementedError(
+            f"arch {name!r} is not in the port, which runs {list(_MODULES)}; "
+            "the other architectures of the JAX package (MoE, MLA, "
+            "encoder-decoder, VLM, xLSTM) are queued in ROADMAP.md §1")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    return mod.CONFIG

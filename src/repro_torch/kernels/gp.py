@@ -25,74 +25,15 @@ main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import library
-
-
-class LaunchCounter:
-    """Thread-safe count of a kernel's launches."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def count(self) -> int:
-        with self._lock:
-            return self._n
-
+from repro_torch.kernels._launch import (I as _I, P as _P, LaunchCounter,
+                                         _check, _fn, _raise_on)
 
 gp_nll_launches = LaunchCounter()
 gp_ei_launches = LaunchCounter()
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_BOUND = {}
-_BIND_LOCK = threading.Lock()
-
-
-def _fn(lib_name: str, sym: str, argtypes, restype=ctypes.c_int):
-    """The C entry point ``sym`` of one kernel library, typed once."""
-    fn = _BOUND.get(sym)
-    if fn is None:
-        with _BIND_LOCK:
-            fn = _BOUND.get(sym)
-            if fn is None:
-                fn = getattr(library(lib_name), sym)
-                fn.argtypes = argtypes
-                fn.restype = restype
-                _BOUND[sym] = fn
-    return fn
-
-
-def _check(name, t, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected float32")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 # ------------------------------------------------------------------ NLL

@@ -1,8 +1,9 @@
-"""Public dispatch for the GP kernels.
+"""Public dispatch for the kernels.
 
-For CUDA tensors these launch the hand-written kernels (``kernels/gp.py``);
-for CPU tensors they run the plain PyTorch oracles in ``ref.py`` — callers
-never branch on the device themselves.  ``force_kernel=True`` routes CPU
+For CUDA tensors these launch the hand-written kernels (``kernels/gp.py``,
+``kernels/flash_attention.py``, ``kernels/rglru_scan.py``); for CPU
+tensors they run the plain PyTorch oracles in ``ref.py`` — callers never
+branch on the device themselves.  ``force_kernel=True`` routes CPU
 tensors through the kernel wrappers too, which on the CPU take their plain
 versions: that is how the CPU tests reach the autograd ``gp_nll`` and its
 analytic backward.
@@ -11,8 +12,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gp as _gpk
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -57,3 +60,19 @@ def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand,
                           y_std, cand, best, xi=xi)
     return ref.gp_ei_ref(log_ls, log_amp, x, mask, chol, alpha, y_mean,
                          y_std, cand, best, xi=xi)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Forward softmax attention, q (B,Sq,H,D), k/v (B,Skv,K,D) with
+    K | H, causal and/or a sliding window, optional tanh softcap ->
+    (B,Sq,H,D) in q's dtype: the CUDA kernel on the card, the dense
+    oracle on the CPU."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+
+
+def rglru_scan(log_a, b):
+    """h_t = exp(log_a_t)·h_{t−1} + b_t from h₀ = 0 over (B,S,R)
+    float32: the CUDA kernel on the card, the sequential oracle on the
+    CPU."""
+    return _rg.rglru_scan(log_a, b)

@@ -1,11 +1,12 @@
-"""Plain PyTorch oracles for the GP kernels (the allclose ground truth).
+"""Plain PyTorch oracles for the kernels (the allclose ground truth).
 
-Torch mirrors of ``_matern52``, ``gp_nll_ref``, ``gp_nll_grads_ref`` and
-``gp_ei_ref`` from the JAX package's ``kernels/ref.py``, formula for
-formula, so the CPU tests can hold each one against its JAX counterpart
-and ``chip_smoke.py`` can hold the CUDA kernels against them on the card.
-The oracles of the kernels that are not ported yet (flash attention,
-RG-LRU scan, int8 quantization) come with those kernels.
+Torch mirrors of ``flash_attention_ref``, ``rglru_scan_ref``,
+``_matern52``, ``gp_nll_ref``, ``gp_nll_grads_ref`` and ``gp_ei_ref``
+from the JAX package's ``kernels/ref.py``, formula for formula, so the
+CPU tests can hold each one against its JAX counterpart and
+``chip_smoke.py`` can hold the CUDA kernels against them on the card.
+The oracle of the kernel that is not ported yet (int8 quantization)
+comes with that kernel.
 """
 from __future__ import annotations
 
@@ -14,6 +15,45 @@ import math
 import torch
 
 _LOG_2PI = math.log(2.0 * math.pi)
+NEG_INF = -2.0 ** 30
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q: (B,Sq,H,D); k,v: (B,Skv,K,D) -> (B,Sq,H,D).  Dense masked
+    softmax attention in float32, out in q's dtype: the function the
+    flash kernel must equal.  Query and key positions both count from 0;
+    masked scores take ``NEG_INF``, not -inf."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, D).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    kv_pos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= kv_pos
+    if window:
+        mask &= (q_pos - kv_pos) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def rglru_scan_ref(log_a, b, h0=None):
+    """Sequential RG-LRU recurrence h_t = exp(log_a_t)·h_{t-1} + b_t.
+    log_a, b: (B,S,R) float32; h0: (B,R), zeros when None -> h (B,S,R)."""
+    B, S, R = log_a.shape
+    h = (torch.zeros((B, R), dtype=torch.float32, device=log_a.device)
+         if h0 is None else h0.float())
+    out = torch.empty((B, S, R), dtype=torch.float32, device=log_a.device)
+    a = torch.exp(log_a.float())
+    for t in range(S):
+        h = h * a[:, t] + b[:, t]
+        out[:, t] = h
+    return out
 
 
 def _matern52(a, b, log_ls, log_amp):

@@ -1,0 +1,5 @@
+"""Model substrate of the port: the LM of the dense and hybrid families."""
+from repro_torch.models.common import SHAPES, ModelConfig, ShapeSpec
+from repro_torch.models.model import LM
+
+__all__ = ["ModelConfig", "ShapeSpec", "SHAPES", "LM"]

@@ -1,0 +1,52 @@
+"""Carry the JAX package's LM weights into the port.
+
+``params_from_reference(cfg, tree)`` takes the pytree the reference's
+``LM(cfg).init`` returns, with its leaves as numpy arrays (or anything
+``np.asarray`` reads), and returns the port's parameters: the same nested
+dicts, with each layer group's leading ``repeats`` dim unstacked into the
+port's flat list of layers.  Dense weights stay (d_in, d_out), the layout
+the port's ``layers.dense`` applies as ``x @ w``, so no weight is
+transposed.  With it the two packages compute the same function on the
+same weights, which is how the tests hold one against the other.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.model import tree_map
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def unstack_groups(cfg: ModelConfig, groups: List[Dict[str, Any]]) -> List:
+    """The reference's per-group nests (``{str(j): leaves with a leading
+    repeats dim}``, one per ``cfg.layer_groups()`` entry) -> one nest per
+    layer, in stack order.  Serves its parameters and its caches alike."""
+    layers = []
+    for (pattern, repeats), group in zip(cfg.layer_groups(), groups):
+        for r in range(repeats):
+            for j in range(len(pattern)):
+                layers.append(tree_map(lambda a, r=r: a[r], group[str(j)]))
+    return layers
+
+
+def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
+                          device="cpu") -> Dict[str, Any]:
+    """The reference's ``LM.init`` pytree -> the port's parameters on
+    ``device``, in the leaves' own dtype."""
+    conv = lambda a: _tensor(a, device)  # noqa: E731
+    params = {name: tree_map(conv, sub) for name, sub in tree.items()
+              if name != "groups"}
+    params["layers"] = [tree_map(conv, layer) for layer in
+                        unstack_groups(cfg, tree["groups"])]
+    return params

@@ -1,0 +1,257 @@
+"""The LM of the port, for the dense and hybrid families.
+
+The port's copy of the serving half of the reference's ``models/model.py``:
+  dense    decoder-only transformer (GQA attention, MLP)
+  hybrid   Griffin-style (RG-LRU, RG-LRU, local-attn) stacks
+
+The reference scans homogeneous layer groups whose parameters carry a
+leading ``repeats`` dim; eager PyTorch compiles nothing, so the port keeps
+one flat list of layers in stack order (``LM.specs``, ``params["layers"]``,
+``cache["layers"]``), and ``models/convert.py`` unstacks reference weights
+into it.  Training (``loss``, remat) is not ported yet, nor are the MoE,
+MLA, encoder-decoder, VLM and xLSTM families (ROADMAP.md §1): ``LM``
+raises ``NotImplementedError`` for them.
+
+API (functions of plain dicts of tensors):
+  init(seed, device, dtype) -> params
+  prefill(params, batch, cache_len) -> (cache, last_logits)
+  decode_step(params, cache, tokens) -> (logits, cache)
+  init_cache(batch_size, cache_len, device) -> cache
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Iterator, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
+from repro_torch.models.common import (ATTN, LOCAL_ATTN, RGLRU,
+                                       ModelConfig)
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str          # attn | local | rglru
+    ffn: str           # mlp | none
+
+
+def build_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
+    """One spec per layer, in stack order."""
+    ffn = "none" if cfg.d_ff == 0 else "mlp"
+    return tuple(LayerSpec(k, ffn) for k in cfg.pattern)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    why = None
+    if cfg.family not in ("dense", "hybrid"):
+        why = f"the {cfg.family} family"
+    elif cfg.moe:
+        why = "MoE"
+    elif cfg.mla:
+        why = "MLA"
+    elif cfg.parallel_block:
+        why = "parallel attention+FFN blocks"
+    elif cfg.pos_kind not in ("rope", "none"):
+        why = f"{cfg.pos_kind} positions"
+    else:
+        bad = sorted(set(cfg.pattern) - {ATTN, LOCAL_ATTN, RGLRU})
+        if bad:
+            why = f"layer kinds {bad}"
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: {why} is not ported yet; the port's LM runs the "
+            "dense and hybrid families, and ROADMAP.md §1 queues the rest "
+            "(MoE, MLA, encoder-decoder, VLM, mLSTM/sLSTM)")
+
+
+def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    """Apply ``fn`` to every tensor of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tensors(tree) -> Iterator[torch.Tensor]:
+    """Every tensor of a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors(v)
+    else:
+        yield tree
+
+
+# ==========================================================================
+# per-layer init / forward / decode
+# ==========================================================================
+def _init_layer(init: L.Init, spec: LayerSpec, cfg: ModelConfig) -> Params:
+    p: Params = {"ln1": L.init_norm(init, cfg.d_model, cfg)}
+    if spec.kind in (ATTN, LOCAL_ATTN):
+        p["attn"] = A.init_attention(init, cfg)
+    else:
+        p["rglru"] = R.init_rglru_block(init, cfg)
+    if spec.ffn == "mlp":
+        p["ln2"] = L.init_norm(init, cfg.d_model, cfg)
+        p["ffn"] = L.init_mlp(init, cfg.d_model, cfg.d_ff, cfg)
+    return p
+
+
+def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
+               cache_len: int):
+    """Returns (x, the layer's decode-cache entry)."""
+    eps = cfg.norm_eps
+    h = L.apply_norm(p["ln1"], x, eps)
+    if spec.kind in (ATTN, LOCAL_ATTN):
+        window = cfg.window if spec.kind == LOCAL_ATTN else 0
+        att, kv = A.attn_forward(p["attn"], h, positions, cfg, window=window)
+        entry = _pad_kv(kv, cache_len, window, cfg)
+        x = x + att
+    else:
+        y, entry = R.rglru_forward(p["rglru"], h, cfg)
+        x = x + y
+    if spec.ffn != "none":
+        x = x + L.mlp(p["ffn"], L.apply_norm(p["ln2"], x, eps), cfg)
+    return x, entry
+
+
+def _pad_kv(kv: Params, cache_len: int, window: int, cfg) -> Params:
+    """Fit prefill K/V into the fixed cache buffer (ring-layout for local:
+    the last ``buf_len`` entries, the one of position p at slot
+    p % buf_len)."""
+    out = {}
+    S = next(iter(kv.values())).shape[1]
+    buf_len = min(cache_len, window) if window else cache_len
+    for name, v in kv.items():
+        if window:
+            tail = v[:, -buf_len:] if S >= buf_len else v
+            keep = tail.shape[1]
+            start = (S - keep) % buf_len
+            padded = F.pad(tail, (0, 0, 0, 0, 0, buf_len - keep))
+            out[name] = torch.roll(padded, start, dims=1).to(
+                cfg.compute_dtype)
+        else:
+            out[name] = F.pad(v, (0, 0, 0, 0, 0, cache_len - S)).to(
+                cfg.compute_dtype)
+    return out
+
+
+def _layer_decode(spec: LayerSpec, p: Params, x, cache: Params, pos, cfg):
+    """x: (B,1,d); returns (x, new_cache_entry)."""
+    eps = cfg.norm_eps
+    h = L.apply_norm(p["ln1"], x, eps)
+    if spec.kind in (ATTN, LOCAL_ATTN):
+        window = cfg.window if spec.kind == LOCAL_ATTN else 0
+        att, new = A.attn_decode(p["attn"], h, cache, pos, cfg,
+                                 window=window)
+        x = x + att
+    else:
+        y, new = R.rglru_decode(p["rglru"], h, cache, cfg)
+        x = x + y
+    if spec.ffn != "none":
+        x = x + L.mlp(p["ffn"], L.apply_norm(p["ln2"], x, eps), cfg)
+    return x, new
+
+
+def _init_cache_entry(spec: LayerSpec, cfg: ModelConfig, batch: int,
+                      cache_len: int, device) -> Params:
+    if spec.kind == ATTN:
+        return A.init_cache_attn(cfg, batch, cache_len, device=device)
+    if spec.kind == LOCAL_ATTN:
+        return A.init_cache_attn(cfg, batch, cache_len, window=cfg.window,
+                                 device=device)
+    return R.init_rglru_cache(cfg, batch, device=device)
+
+
+# ==========================================================================
+# the model
+# ==========================================================================
+class LM:
+    def __init__(self, cfg: ModelConfig):
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.specs = build_specs(cfg)
+
+    # ------------------------------------------------------------- params
+    def init(self, seed: int = 0, device="cpu", dtype=None) -> Params:
+        """Random parameters from a ``torch.Generator`` seeded with
+        ``seed`` on ``device``, stored in ``dtype`` (the config's storage
+        dtype by default).  The distributions are the reference's; the
+        numbers are not (JAX and torch generators differ)."""
+        cfg = self.cfg
+        init = L.Init(seed, device, dtype or cfg.store_dtype)
+        params: Params = {
+            "embed": L.init_embedding(init, cfg.vocab_size, cfg.d_model, cfg),
+            "final_norm": L.init_norm(init, cfg.d_model, cfg),
+        }
+        if not cfg.tie_embeddings:
+            params["unembed"] = L.init_embedding(init, cfg.vocab_size,
+                                                 cfg.d_model, cfg)
+        params["layers"] = [_init_layer(init, spec, cfg)
+                            for spec in self.specs]
+        return params
+
+    # ------------------------------------------------------------ helpers
+    def _embed_in(self, params, tokens):
+        cfg = self.cfg
+        x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+        if cfg.scale_embed:
+            # in the compute dtype, as the reference's weakly typed scalar
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        return x
+
+    def _unembed(self, params, x):
+        cfg = self.cfg
+        table = params["embed" if cfg.tie_embeddings else "unembed"]
+        x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
+        return L.unembed(table, x, softcap=cfg.logit_softcap)
+
+    # ------------------------------------------------------------ serving
+    def init_cache(self, batch: int, cache_len: int, device="cpu"):
+        return {"layers": [_init_cache_entry(spec, self.cfg, batch,
+                                             cache_len, device)
+                           for spec in self.specs],
+                "pos": torch.zeros((batch,), dtype=torch.long,
+                                   device=device)}
+
+    def prefill(self, params, batch, cache_len: int):
+        """Run the full prompt, build a decode cache sized ``cache_len``.
+        batch: {"tokens": (B,S)} -> (cache, logits of the last position
+        (B,V))."""
+        tokens = batch["tokens"]
+        x = self._embed_in(params, tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        layers: List[Params] = []
+        for spec, lp in zip(self.specs, params["layers"]):
+            x, entry = _layer_fwd(spec, lp, x, positions, self.cfg,
+                                  cache_len)
+            layers.append(entry)
+        logits = self._unembed(params, x[:, -1:])[:, 0]
+        cache = {"layers": layers,
+                 "pos": torch.full((tokens.shape[0],), S, dtype=torch.long,
+                                   device=x.device)}
+        return cache, logits
+
+    def decode_step(self, params, cache, tokens):
+        """tokens: (B,) -> (logits (B,V), new cache).  Attention layers
+        write their new KV row into the cache's own tensors."""
+        pos = cache["pos"]
+        x = self._embed_in(params, tokens[:, None])
+        layers: List[Params] = []
+        for spec, lp, lc in zip(self.specs, params["layers"],
+                                cache["layers"]):
+            x, entry = _layer_decode(spec, lp, x, lc, pos, self.cfg)
+            layers.append(entry)
+        logits = self._unembed(params, x[:, 0])
+        return logits, {"layers": layers, "pos": pos + 1}

@@ -1,0 +1,196 @@
+"""The port's LM kernel layer against the JAX reference.
+
+The torch oracles ``flash_attention_ref`` and ``rglru_scan_ref`` are held
+against the JAX oracles of the same name and against the Pallas kernels
+run in interpret mode (small tiles, as ``tests/test_kernels.py`` runs
+them), on the same numpy-made inputs: causal, windowed, softcapped,
+grouped-query and ragged (Sq ≠ Skv, lengths that are not tile multiples)
+attention in float32 and bfloat16, and the RG-LRU recurrence, also
+against the ``associative_scan`` the reference model runs.  The CUDA
+kernels run only on the card: their test skips here.
+
+Tolerances: float32 results 2e-5 absolute on O(1) outputs (both sides
+compute in float32, in other orders); bfloat16 results 2e-2 absolute —
+both sides compute in float32 from the same bfloat16 inputs and round
+once, so they differ by at most one bfloat16 step (2^-7 relative) of
+outputs below 2 in magnitude.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.rglru_scan import rglru_scan as pallas_rglru
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru_scan as krg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small shapes: one intra-op thread is enough, and the suite runs
+    beside other test processes on the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# (B, Sq, Skv, H, K, D, causal, window, softcap)
+FLASH_CASES = {
+    "mha_causal": (1, 64, 64, 4, 4, 16, True, 0, 0.0),
+    "gqa_ragged": (2, 70, 70, 8, 2, 32, True, 0, 0.0),
+    "mqa_window": (1, 100, 100, 6, 1, 64, True, 16, 0.0),
+    "window_wider_than_tile": (1, 90, 90, 2, 1, 16, True, 40, 0.0),
+    "softcap": (1, 64, 64, 2, 2, 16, True, 0, 20.0),
+    "noncausal_softcap": (2, 48, 48, 4, 2, 16, False, 0, 5.0),
+    "sq_lt_skv": (1, 40, 72, 4, 2, 16, True, 0, 0.0),
+    "sq_gt_skv_window": (1, 72, 40, 4, 1, 16, True, 48, 0.0),
+    "noncausal_window": (1, 56, 56, 2, 2, 16, False, 12, 0.0),
+}
+DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 2e-5),
+          "bf16": (None, jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def _flash_inputs(case, dtype, seed=0):
+    B, Sq, Skv, H, K, D = case[:6]
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D))]
+    _, jdt, tdt, _ = DTYPES[dtype]
+    jx = [jnp.asarray(a, jdt) for a in arrs]
+    # the same rounded values on both sides
+    tx = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+          for a in jx]
+    return jx, tx
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor)
+                      else jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_oracle_matches_jax_oracle(name, dtype):
+    case = FLASH_CASES[name]
+    causal, window, softcap = case[6:]
+    jx, tx = _flash_inputs(case, dtype)
+    want = jref.flash_attention_ref(*jx, causal=causal, window=window,
+                                    softcap=softcap)
+    got = ref.flash_attention_ref(*tx, causal=causal, window=window,
+                                  softcap=softcap)
+    assert got.dtype == tx[0].dtype and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0,
+                               atol=DTYPES[dtype][3])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_oracle_matches_pallas_interpret(name, dtype):
+    """The Pallas kernel with 32-row tiles: its band skipping and its
+    online softmax agree with the port's dense oracle."""
+    case = FLASH_CASES[name]
+    causal, window, softcap = case[6:]
+    jx, tx = _flash_inputs(case, dtype, seed=1)
+    want = pallas_flash(*jx, causal=causal, window=window, softcap=softcap,
+                        bq=32, bk=32, interpret=True)
+    got = ops.flash_attention(*tx, causal=causal, window=window,
+                              softcap=softcap)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=0,
+                               atol=DTYPES[dtype][3])
+
+
+def _scan_inputs(B, S, R, seed=0):
+    rng = np.random.default_rng(seed)
+    la = (-np.abs(rng.normal(0, 0.5, (B, S, R)))).astype(np.float32)
+    b = rng.normal(0, 1, (B, S, R)).astype(np.float32)
+    return la, b
+
+
+SCAN_SHAPES = [(1, 64, 32), (2, 100, 96), (1, 257, 520)]
+
+
+@pytest.mark.parametrize("B,S,R", SCAN_SHAPES)
+def test_rglru_oracle_matches_jax(B, S, R):
+    """Against the sequential JAX oracle (same order, float32:
+    1e-5), the Pallas kernel in interpret mode (1e-5) and the reference
+    model's associative_scan, whose tree order rounds differently (1e-4
+    relative to the largest |h|, which is O(10) here)."""
+    la, b = _scan_inputs(B, S, R)
+    got = ops.rglru_scan(torch.from_numpy(la), torch.from_numpy(b)).numpy()
+    seq = np.asarray(jref.rglru_scan_ref(jnp.asarray(la), jnp.asarray(b)))
+    np.testing.assert_allclose(got, seq, rtol=1e-5, atol=1e-5)
+    pal = np.asarray(pallas_rglru(jnp.asarray(la), jnp.asarray(b), bt=32,
+                                  bf=64, interpret=True))
+    np.testing.assert_allclose(got, pal, rtol=1e-5, atol=1e-5)
+
+    def op(c1, c2):
+        (la1, h1), (la2, h2) = c1, c2
+        return la1 + la2, h1 * jnp.exp(la2) + h2
+    _, assoc = jax.lax.associative_scan(op, (jnp.asarray(la), jnp.asarray(b)),
+                                        axis=1)
+    assoc = np.asarray(assoc)
+    assert np.abs(got - assoc).max() <= 1e-4 * np.abs(assoc).max()
+
+
+def test_rglru_oracle_initial_state():
+    la, b = _scan_inputs(2, 20, 8, seed=3)
+    h0 = np.random.default_rng(4).normal(0, 1, (2, 8)).astype(np.float32)
+    got = ref.rglru_scan_ref(torch.from_numpy(la), torch.from_numpy(b),
+                             torch.from_numpy(h0)).numpy()
+    want = np.asarray(jref.rglru_scan_ref(jnp.asarray(la), jnp.asarray(b),
+                                          jnp.asarray(h0)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
+    jx, (q, k, v) = _flash_inputs(FLASH_CASES["mqa_window"], "f32")
+    la, b = (torch.from_numpy(a) for a in _scan_inputs(1, 30, 16))
+    n_fa = kfa.flash_attention_launches.count
+    n_rg = krg.rglru_scan_launches.count
+    assert torch.equal(kfa.flash_attention(q, k, v, window=16),
+                       ref.flash_attention_ref(q, k, v, window=16))
+    assert torch.equal(krg.rglru_scan(la, b), ref.rglru_scan_ref(la, b))
+    assert kfa.flash_attention_launches.count == n_fa
+    assert krg.rglru_scan_launches.count == n_rg
+
+
+def test_wrappers_raise_on_a_device_without_a_kernel():
+    _, (q, k, v) = _flash_inputs(FLASH_CASES["mha_causal"], "f32")
+    with pytest.raises(ValueError, match="no kernel"):
+        kfa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    la, b = (torch.from_numpy(a).to("meta") for a in _scan_inputs(1, 8, 4))
+    with pytest.raises(ValueError, match="no kernel"):
+        krg.rglru_scan(la, b)
+
+
+def test_cuda_kernels_match_plain_versions():
+    """The hand-written CUDA kernels against their plain versions on the
+    card, every case above in float32 and bfloat16, with the tolerances
+    above; and a CUDA tensor launches (the counters move)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    n0 = kfa.flash_attention_launches.count
+    for name, case in FLASH_CASES.items():
+        causal, window, softcap = case[6:]
+        for dtype in DTYPES:
+            _, tx = _flash_inputs(case, dtype)
+            q, k, v = (t.to(dev) for t in tx)
+            got = kfa.flash_attention(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window, softcap=softcap)
+            err = float((got.float() - want.float()).abs().max())
+            assert err <= DTYPES[dtype][3], (name, dtype, err)
+    assert kfa.flash_attention_launches.count == n0 + 2 * len(FLASH_CASES)
+    for B, S, R in SCAN_SHAPES:
+        la, b = (torch.from_numpy(a).to(dev) for a in _scan_inputs(B, S, R))
+        got = krg.rglru_scan(la, b)
+        want = ref.rglru_scan_ref(la, b)
+        assert float((got - want).abs().max()) <= 1e-5 * max(
+            1.0, float(want.abs().max()))
