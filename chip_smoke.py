@@ -1,5 +1,5 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: the GP suggestion
-service and the LM server.
+service, the LM server and the error-feedback int8 all-reduce.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -54,6 +54,19 @@ script exits non-zero and prints no result):
    logits limit sees it is recorded.  Last, one more prefill and 8
    decode steps under torch.profiler: the device's busy time and idle
    share, and its kernels by device time.
+6. the error-feedback int8 all-reduce — (a) ``int8_quantize`` against its
+   plain version, bit for bit (codes and scales), at the gradient tree's
+   largest leaf (the 256 000 x 2560 embedding), ragged and short inputs,
+   NaN and inf blocks (scale NaN / inf, codes 0) and one buffer of
+   2^31 + 1000 elements, each timed beside its bound; (b)
+   ``compressed_psum_tree`` over recurrentgemma-2b's full gradient tree
+   (308 float32 leaves, 2.894 B elements), world size 1 over NCCL, 3 steps
+   carrying the error: exactly 308 kernel launches a step (counter zeroed
+   just before), reduced and new error bit for bit against the plain
+   path, the reference test's drift bound, ms a step and peak memory; (c)
+   4 gloo ranks on the one card over the reduced tree, 3 steps: each
+   rank's launches, its new error bit for bit, its reduced tensor within
+   4 float32 ulps of the float64 mean of the ranks' sent tensors.
 
 The last lines are the kernels' summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Details go to
@@ -504,7 +517,7 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
          suggest_p99_ms=float(np.percentile(ms, 99)),
          observations=sum(st.observations for st in statuses),
          best=[st.best and st.best["value"] for st in statuses],
-         launches=launches, executor=executor,
+         launches=dict(launches), executor=executor,
          cobatched_extra_lanes=executor.get("lanes", 0)
          - executor.get("batched", 0),
          pump=[{k: st.pump.get(k) for k in
@@ -983,6 +996,299 @@ def phase_serve():
     return launches
 
 
+# ------------------------------------------------------------- phase 6
+#: the gradient tree of phase 6b: every parameter of recurrentgemma-2b at
+#: full width, in float32 (308 leaves, 2 894 481 920 elements)
+COMPRESS_ARCH = "recurrentgemma-2b"
+TREE_LEAVES = 308
+COMPRESS_STEPS = 3
+#: phase 6c: ranks on the one card, each over the reduced tree
+RANKS = 4
+RANK_TIMEOUT_S = 240
+#: |reduced - mean| limit of phase 6c in units of 2^-23 x the mean of the
+#: ranks' |sent|: a float32 sum of 4 terms is off by at most 3 x 2^-24 of
+#: their magnitude sum, and the division by 4 is exact
+RANK_ULPS = 4
+#: (name, elements) of phase 6a's kernel cases besides the NaN/inf blocks;
+#: the first is the tree's largest leaf, the embedding gradient
+#: (256 000 x 2560), the last passes 2^31 elements, so its offsets need
+#: 64 bits
+QUANT_CASES = (("embed", 256_000 * 2560), ("ragged", 256 * 4099 + 17),
+               ("small", 100), ("over_2^31", 2 ** 31 + 1000))
+#: plain versions are compared in chunks of this many blocks (4.3 GB)
+QUANT_CHUNK = 2 ** 22
+
+
+def q8_same(a, b) -> bool:
+    """Two (q, scales) results equal bit for bit, NaN scales where NaN."""
+    (qa, sa), (qb, sb) = a, b
+    return (torch.equal(qa, qb) and torch.equal(sa.isnan(), sb.isnan())
+            and torch.equal(sa.nan_to_num(), sb.nan_to_num()))
+
+
+def q8_work(n: int):
+    """(operations, bytes) of quantizing n float32 elements: about 6
+    operations an element (|x|, max, divide, round, two clamps); x read
+    once, the (nb, 256) codes and nb scales written once."""
+    nb = -(-n // 256)
+    return 6 * n, 4 * n + 256 * nb + 4 * nb
+
+
+def phase_quant_kernels():
+    """6a: the int8 kernel against its plain version on the card, bit for
+    bit, at the tree's largest leaf, ragged and short inputs, NaN and inf
+    blocks, and one buffer past 2^31 elements compared in chunks."""
+    from repro_torch.kernels import int8_quant as kq8
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    summary = {}
+    # a NaN block, an inf block, a -inf block, then exact halves
+    x = torch.zeros(4 * 256, device=dev)
+    x[:768] = torch.randn(768, generator=gen.manual_seed(1), device=dev)
+    x[3], x[300], x[600] = float("nan"), float("inf"), -float("inf")
+    x[768:] = torch.arange(256, device=dev) - 127.5
+    got, want = kq8.int8_quantize(x), ref.int8_quant_ref(x)
+    torch.cuda.synchronize()
+    check(q8_same(got, want), "int8_quantize NaN/inf blocks vs plain")
+    s = got[1].tolist()
+    check(math.isnan(s[0]) and s[1] == s[2] == math.inf
+          and math.isfinite(s[3]), f"NaN/inf block scales {s}")
+    check(not bool(got[0][:3].any()), "NaN/inf blocks have nonzero codes")
+    emit("quant_case", case="nan_inf", n=x.numel(), equal=True, scales=s[:3])
+    for name, n in QUANT_CASES:
+        x = torch.randn(n, generator=gen.manual_seed(n), device=dev)
+        q, sc = kq8.int8_quantize(x)
+        torch.cuda.synchronize()
+        equal = True
+        for b0 in range(0, sc.numel(), QUANT_CHUNK):
+            chunk = x[b0 * 256:(b0 + QUANT_CHUNK) * 256]
+            equal &= q8_same((q[b0:b0 + QUANT_CHUNK],
+                              sc[b0:b0 + QUANT_CHUNK]),
+                             ref.int8_quant_ref(chunk))
+        check(equal, f"int8_quantize {name} (n={n}) differs from plain")
+        del q, sc
+        ms = time_ms(lambda: kq8.int8_quantize(x))
+        plain_ms = (None if n > QUANT_CHUNK * 256
+                    else time_ms(lambda: ref.int8_quant_ref(x)))
+        bound, by = bound_ms(*q8_work(n))
+        emit("quant_case", case=name, n=n, equal=True, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+             gbytes=q8_work(n)[1] / 1e9)
+        if name == "embed":
+            summary["int8_quantize"] = dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+        del x
+        torch.cuda.empty_cache()
+    return summary
+
+
+def _process_group(backend: str, rank: int, world: int, store: str):
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def phase_compress():
+    """6b: ``compressed_psum_tree`` over recurrentgemma-2b's full gradient
+    tree in float32, world size 1 (NCCL on the card), 3 steps carrying
+    the error: 308 kernel launches a step, every step's reduced and new
+    error bit for bit against the same step through the plain version,
+    and the error-feedback drift bound of the reference's test."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compress
+    from repro_torch.kernels import int8_quant as kq8
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    meta = M.LM(get_config(COMPRESS_ARCH)).init(device="meta",
+                                                 dtype=torch.float32)
+    n_leaves = len(list(M.tensors(meta)))
+    n_elems = sum(t.numel() for t in M.tensors(meta))
+    check(n_leaves == TREE_LEAVES, f"{n_leaves} leaves")
+    gen = torch.Generator(device=dev)
+
+    def draw(step):
+        gen.manual_seed(step)
+        return M.tree_map(lambda t: torch.randn(
+            t.shape, generator=gen, device=dev), meta)
+
+    zeros = lambda: M.tree_map(  # noqa: E731
+        lambda t: torch.zeros(t.shape, device=dev), meta)
+    _process_group("nccl", 0, 1, str(pathlib.Path(tempfile.mkdtemp(
+        prefix="chip-smoke-pg-")) / "store"))
+    try:
+        errs, drift = zeros(), zeros()
+        steps = []
+        kq8.int8_quantize_launches.reset()
+        for step in range(COMPRESS_STEPS):
+            grads = draw(step)
+            torch.cuda.synchronize()
+            before = kq8.int8_quantize_launches.count
+            step_resident = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            reduced, new_errs = compress.compressed_psum_tree(grads, errs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            launched = kq8.int8_quantize_launches.count - before
+            check(launched == TREE_LEAVES,
+                  f"step {step}: {launched} int8_quantize launches")
+            # the same step through the plain version, leaf by leaf, the
+            # largest (first) leaf last, freeing each leaf as it goes
+            g_l, r_l = list(M.tensors(grads)), list(M.tensors(reduced))
+            del grads, reduced
+            e_l, ne_l = list(M.tensors(errs)), list(M.tensors(new_errs))
+            d_l = list(M.tensors(drift))
+            equal = True
+            with patched(ops, int8_quantize=ref.int8_quant_ref):
+                for i in reversed(range(n_leaves)):
+                    g, r = g_l.pop(), r_l.pop()
+                    pr, pe = compress.compressed_psum(g, e_l[i])
+                    equal &= torch.equal(pr, r) and torch.equal(pe, ne_l[i])
+                    # world size 1: reduced is what was sent
+                    d_l[i].add_(g - r)
+                    del g, r, pr, pe
+            check(kq8.int8_quantize_launches.count - before == TREE_LEAVES,
+                  "the plain path launched the kernel")
+            check(equal, f"step {step}: kernel path differs from plain")
+            errs = new_errs
+            del e_l, ne_l, d_l
+            steps.append(dict(step=step, ms=ms, launches=launched,
+                              resident_gb=step_resident, peak_gb=peak,
+                              equal=equal))
+        launches = kq8.int8_quantize_launches.count
+        # the reference's drift bound (tests/test_compress.py): accumulated
+        # gradients minus accumulated sent values stay within the residual
+        err_max = max(float(t.abs().max()) for t in M.tensors(errs))
+        drift_max = max(float(t.abs().max()) for t in M.tensors(drift))
+        check(drift_max <= err_max + 1e-5,
+              f"drift {drift_max} > max|err| {err_max} + 1e-5")
+        del drift
+        # one more step, unchecked, under torch.profiler
+        grads = draw(COMPRESS_STEPS)
+        prof = device_profile(
+            lambda: compress.compressed_psum_tree(grads, errs))
+        del grads, errs
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    bound, by = bound_ms(0, 16 * n_elems)
+    q8_bound, _ = bound_ms(*q8_work(n_elems))
+    emit("compress", arch=COMPRESS_ARCH, leaves=n_leaves, elements=n_elems,
+         steps=steps, launches=launches, resident_before_gb=resident_gb,
+         drift_max=drift_max, err_max=err_max, step_bound_ms=bound,
+         step_bound_by=by, kernel_bound_ms_per_step=q8_bound,
+         ms_per_step=[s_["ms"] for s_ in steps], profile=prof)
+    return {"int8_quantize": launches}
+
+
+def compress_rank(rank: int, world: int, store: str, out: str) -> None:
+    """One rank of phase 6c: ``compressed_psum_tree`` over the reduced
+    recurrentgemma-2b tree, grads drawn on the card from (rank, step), 3
+    steps carrying the error, gloo all-reduces of CUDA tensors.  Every
+    rank replays all ranks' steps through the plain version to hold its
+    new error bit for bit and its reduced tensor against the float64 mean
+    of the ranks' sent tensors; it writes what it found to ``out``."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compress
+    from repro_torch.kernels import int8_quant as kq8
+    from repro_torch.kernels import ref
+    from repro_torch.models import model as M
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    meta = list(M.tensors(M.LM(get_config(COMPRESS_ARCH).reduced()).init(
+        device="meta", dtype=torch.float32)))
+    gen = torch.Generator(device=dev)
+
+    def draw(r, step):
+        gen.manual_seed(1000 * r + step)
+        return [torch.randn(t.shape, generator=gen, device=dev) for t in meta]
+
+    _process_group("gloo", rank, world, store)
+    try:
+        errs = [torch.zeros(t.shape, device=dev) for t in meta]
+        plain_errs = [[e.clone() for e in errs] for _ in range(world)]
+        stats = dict(rank=rank, launches=[], new_err_equal=True,
+                     worst_ulps=0.0)
+        for step in range(COMPRESS_STEPS):
+            kq8.int8_quantize_launches.reset()
+            reduced, errs = compress.compressed_psum_tree(draw(rank, step),
+                                                          errs)
+            torch.cuda.synchronize()
+            stats["launches"].append(kq8.int8_quantize_launches.count)
+            sent_sum = [torch.zeros(t.shape, dtype=torch.float64,
+                                    device=dev) for t in meta]
+            mag = [s_.clone() for s_ in sent_sum]
+            for r in range(world):
+                for i, g in enumerate(draw(r, step)):
+                    corrected = g + plain_errs[r][i]
+                    q, sc = ref.int8_quant_ref(corrected)
+                    sent = compress.dequantize(q, sc, g.shape)
+                    plain_errs[r][i] = corrected - sent
+                    sent_sum[i] += sent.double()
+                    mag[i] += sent.double().abs()
+            for i in range(len(meta)):
+                stats["new_err_equal"] &= torch.equal(errs[i],
+                                                      plain_errs[rank][i])
+                ulps = ((reduced[i].double() - sent_sum[i] / world).abs()
+                        / (2.0 ** -23 * mag[i] / world).clamp(min=1e-300))
+                stats["worst_ulps"] = max(stats["worst_ulps"],
+                                          float(ulps.max()))
+        stats["leaves"] = len(meta)
+    finally:
+        dist.destroy_process_group()
+    pathlib.Path(out).write_text(json.dumps(stats))
+
+
+def phase_compress_ranks():
+    """6c: four gloo ranks on the one card (the smoke has one card, so
+    NCCL cannot place four ranks), file-store rendezvous; a rank that
+    fails or outlives ``RANK_TIMEOUT_S`` fails the run and the others are
+    killed."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-ranks-"))
+    store = str(work / "store")
+    procs = [ctx.Process(target=compress_rank,
+                         args=(r, RANKS, store, str(work / f"rank{r}.json")))
+             for r in range(RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * RANKS, f"ranks exited {codes} (None: hung)")
+    stats = [json.loads((work / f"rank{r}.json").read_text())
+             for r in range(RANKS)]
+    for st in stats:
+        check(st["launches"] == [st["leaves"]] * COMPRESS_STEPS,
+              f"rank {st['rank']} launches {st['launches']}")
+        check(st["new_err_equal"], f"rank {st['rank']} new_err differs")
+        check(st["worst_ulps"] <= RANK_ULPS,
+              f"rank {st['rank']} reduced {st['worst_ulps']} ulps off")
+    emit("compress_ranks", ranks=RANKS, backend="gloo", wall_s=wall,
+         limit_ulps=RANK_ULPS, stats=stats)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -994,6 +1300,9 @@ def main() -> int:
     launches = phase_service()
     summary.update(phase_lm_kernels())
     launches.update(phase_serve())
+    summary.update(phase_quant_kernels())
+    launches.update(phase_compress())
+    phase_compress_ranks()
     kernels = [
         dict(name="gp_nll", route="cuda",
              source="src/repro_torch/kernels/csrc/gp_nll.cu",
@@ -1012,6 +1321,11 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:40",
              launches=launches["rglru_scan"], **summary["rglru_scan"]),
+        dict(name="int8_quantize", route="cuda",
+             source="src/repro_torch/kernels/csrc/int8_quant.cu",
+             replaces="src/repro/kernels/int8_quant.py:28",
+             launches=launches["int8_quantize"],
+             **summary["int8_quantize"]),
     ]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

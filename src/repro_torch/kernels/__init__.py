@@ -1,4 +1,5 @@
 # Hand-written CUDA kernels of the port (csrc/), their ctypes wrappers
-# (gp.py), the plain PyTorch oracles beside them (ref.py) and the
-# dispatch layer the GP numerics call (ops.py).  Nothing here builds or
-# loads a kernel at import time: the first CUDA call does.
+# (gp.py, flash_attention.py, rglru_scan.py, int8_quant.py), the plain
+# PyTorch oracles beside them (ref.py) and the dispatch layer the numerics
+# call (ops.py).  Nothing here builds or loads a kernel at import time:
+# the first CUDA call does.

@@ -17,6 +17,8 @@ import torch
 from repro_torch.kernels._build import library
 
 P, I = ctypes.c_void_p, ctypes.c_int
+#: a 64-bit count, for entry points whose element counts pass 2^31
+I64 = ctypes.c_longlong
 
 _BOUND = {}
 _BIND_LOCK = threading.Lock()

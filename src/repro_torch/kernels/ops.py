@@ -1,12 +1,12 @@
 """Public dispatch for the kernels.
 
 For CUDA tensors these launch the hand-written kernels (``kernels/gp.py``,
-``kernels/flash_attention.py``, ``kernels/rglru_scan.py``); for CPU
-tensors they run the plain PyTorch oracles in ``ref.py`` — callers never
-branch on the device themselves.  ``force_kernel=True`` routes CPU
-tensors through the kernel wrappers too, which on the CPU take their plain
-versions: that is how the CPU tests reach the autograd ``gp_nll`` and its
-analytic backward.
+``kernels/flash_attention.py``, ``kernels/rglru_scan.py``,
+``kernels/int8_quant.py``); for CPU tensors they run the plain PyTorch
+oracles in ``ref.py`` — callers never branch on the device themselves.
+``force_kernel=True`` routes CPU tensors through the kernel wrappers too,
+which on the CPU take their plain versions: that is how the CPU tests
+reach the autograd ``gp_nll`` and its analytic backward.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gp as _gpk
+from repro_torch.kernels import int8_quant as _q8
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 
@@ -76,3 +77,10 @@ def rglru_scan(log_a, b):
     float32: the CUDA kernel on the card, the sequential oracle on the
     CPU."""
     return _rg.rglru_scan(log_a, b)
+
+
+def int8_quantize(x):
+    """Blockwise max-abs int8 quantization, blocks of 256 -> (q int8
+    (nb, 256), scales float32 (nb,)): the CUDA kernel on the card, the
+    plain oracle on the CPU."""
+    return _q8.int8_quantize(x)

@@ -1,18 +1,17 @@
 """Plain PyTorch oracles for the kernels (the allclose ground truth).
 
 Torch mirrors of ``flash_attention_ref``, ``rglru_scan_ref``,
-``_matern52``, ``gp_nll_ref``, ``gp_nll_grads_ref`` and ``gp_ei_ref``
-from the JAX package's ``kernels/ref.py``, formula for formula, so the
-CPU tests can hold each one against its JAX counterpart and
-``chip_smoke.py`` can hold the CUDA kernels against them on the card.
-The oracle of the kernel that is not ported yet (int8 quantization)
-comes with that kernel.
+``_matern52``, ``gp_nll_ref``, ``gp_nll_grads_ref``, ``gp_ei_ref`` and
+``int8_quant_ref`` from the JAX package's ``kernels/ref.py``, formula for
+formula, so the CPU tests can hold each one against its JAX counterpart
+and ``chip_smoke.py`` can hold the CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 _LOG_2PI = math.log(2.0 * math.pi)
 NEG_INF = -2.0 ** 30
@@ -177,3 +176,25 @@ def gp_ei_ref(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std,
     ncdf = 0.5 * (1.0 + torch.erf(z / math.sqrt(2.0)))
     npdf = torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi)
     return imp * ncdf + sd * npdf
+
+
+def int8_quant_ref(x, block=256):
+    """Blockwise max-abs int8 quantization oracle.
+    x: any shape -> (q int8 (nb, block), scales f32 (nb,)).
+
+    The eager JAX reference's arithmetic exactly: IEEE division by 127
+    (a 0-dim tensor divisor, because PyTorch's CUDA division by a Python
+    number multiplies by its reciprocal), round half to even.  A block
+    holding a NaN gets scale NaN, one holding an inf scale inf, and q is 0
+    wherever x/scale is NaN, as the reference's float-to-int8 cast gives
+    on the CPU (written out here: that cast is undefined in C)."""
+    flat = x.to(torch.float32).reshape(-1)
+    pad = (-flat.numel()) % block
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, block)
+    amax = blocks.abs().amax(1)
+    scale = torch.clamp(amax / amax.new_full((), 127.0), min=1e-12)
+    r = torch.round(blocks / scale[:, None])
+    r = torch.where(torch.isnan(r), torch.zeros_like(r), r)
+    return torch.clamp(r, -127, 127).to(torch.int8), scale
