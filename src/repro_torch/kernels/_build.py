@@ -54,7 +54,17 @@ def nvcc() -> str:
                        "toolkit on the machine with the card")
 
 
-def _target(name: str) -> pathlib.Path:
+def tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``cuobjdump``, ...) beside nvcc."""
+    path = pathlib.Path(nvcc()).with_name(name)
+    if not path.exists():
+        raise RuntimeError(f"{name} not found beside {nvcc()}")
+    return str(path)
+
+
+def library_path(name: str) -> pathlib.Path:
+    """The shared library built from ``csrc/<name>.cu`` with this
+    package's flags (built or not)."""
     src = (CSRC / f"{name}.cu").read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
@@ -63,10 +73,10 @@ def _target(name: str) -> pathlib.Path:
 def _build_missing(names: List[str]) -> None:
     """Compile every missing library, one nvcc process per source, all
     started together.  Caller holds both locks."""
-    todo = [n for n in names if not _target(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     procs = []
     for name in todo:
-        out = _target(name)
+        out = library_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, time.perf_counter(),
@@ -100,7 +110,7 @@ def build_all(names=SOURCES) -> Dict[str, ctypes.CDLL]:
                     fcntl.flock(fh, fcntl.LOCK_UN)
             for name in missing:
                 build_seconds.setdefault(name, 0.0)
-                _LIBS[name] = ctypes.CDLL(str(_target(name)))
+                _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return {n: _LIBS[n] for n in names}
 
 

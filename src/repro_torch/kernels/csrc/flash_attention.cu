@@ -18,46 +18,74 @@
 // a visible (query, key) pair a head (Q.K and P.V), 166 GFLOP at the serve
 // shape (B 4, S 3000, H 10, K 1, D 256, window 2048): 0.17 ms at the 989
 // TFLOP/s of bf16 tensor cores, against 0.06 ms for the bytes of q, k, v
-// and o.  This first kernel does not reach the tensor cores: it runs the
-// products as float32 multiply-adds on the CUDA cores (67 TFLOP/s at the
-// most), from shared memory.  wgmma tiles fed by TMA are the later step.
+// and o.
 //
-// What the design does about it: one block of 256 threads per (q head,
-// 64-row q tile, batch), with the heads fastest in the grid so the H/K
-// query heads that share a KV head run side by side and read its tiles
-// from L2.  The block walks only the KV tiles of its visible band, from
-// max(0, q0 - window + 1) to min(q1, Skv) rounded out to whole 64-key
-// tiles (a partly visible tile is masked element by element, never
-// skipped).  Q, K and V tiles sit in dynamic shared memory as float32 (213
-// KB at D = 256, so the launcher raises the block's limit), Q and K rows
-// padded by one float so a warp's reads of 16 different rows fall in 16
-// banks.  Thread t owns rows 4(t/16) .. 4(t/16)+3 of the tile, for the
-// scores at columns t%16 + 16j and for the accumulator at columns
-// t%16 + 16c, so the row statistics (m, l) and the rescaling of its part
-// of the accumulator stay in its registers; a row's max and sum reduce
-// over the 16 lanes that share it with warp shuffles.
+// Two kernels, chosen by the input type (never on failure):
+//
+// bfloat16 — `tc::flash_tc_kernel`, on the tensor cores.  One block of
+// three warpgroups per (q head, 128 query rows, batch), the heads fastest
+// in the grid so the H/K query heads that share a KV head run side by side
+// and read its tiles from L2.
+//  * Warp specialisation: warpgroup 0 is the producer (`setmaxnreg` down to
+//    24 registers); one of its threads issues every TMA load.  Warpgroups 1
+//    and 2 are consumers (`setmaxnreg` up to 240), each owning 64 query rows:
+//    its O accumulator (64 x D float32, D/2 registers a thread) and its row
+//    statistics (m, l) live in registers.
+//  * TMA: one tensor map per tensor over (D, heads, S, B), boxes of 64
+//    bf16 columns x 64 rows, 128-byte swizzled (32-byte at D = 16, a box
+//    as wide as the head); a 256-wide head takes four boxes.  Q is loaded
+//    once per block; K and V tiles of 64 keys stream through a ring of 2
+//    stages guarded by `mbarrier`s (full: the producer's expected bytes;
+//    empty: all 256 consumer threads).  TMA's zero fill past Skv takes the
+//    place of reading the ragged tail; those keys are masked.
+//  * S = Q.K^T: D/16 `wgmma` m64n64k16 per tile, both operands K-major in
+//    shared memory, bf16 in and float32 sums (bf16 products are exact in
+//    float32, so the scores equal float32 scores of the same inputs up to
+//    the order of the sums).
+//  * O += P.V: P stays in registers as the A operand, split in two bf16
+//    parts, P_hi = bf16(P) and P_lo = bf16(P - P_hi), so each tile issues
+//    4 k-steps x 2 `wgmma` m64nDk16 with V MN-major in shared memory
+//    (V in bf16 is exact).  P keeps about 16 bits.  One bf16 rounding of P
+//    would put an error of about 2^-9/sqrt(3) = 1.1e-3 of the row's rms on
+//    each output element, over the 2^-10 share of the row's rms that the
+//    element-wise limit of chip_smoke.py allows where |ref| is small; the
+//    split costs 1.5x the minimal tensor work (about 0.25 ms at the serve
+//    shape).  l sums the float32 P.
+//  * The band walk: a block visits only the 64-key tiles of its causal /
+//    window band; a consumer computes only on the tiles of its own rows'
+//    band (it still waits for and releases the others), and applies the
+//    element mask only on tiles that the band, or the end of the keys,
+//    cuts.
+//  * Budget at D = 256: shared memory Q 64 KB + 2 stages x (K 32 KB +
+//    V 32 KB) = 192 KB (plus 1 KB of alignment slack and the barriers), one
+//    block an SM; registers 2 x 128 x 240 + 128 x 24 = 64 512 of 65 536.
+//
+// float32 — `f32::flash_kernel`, off the serve path, on the CUDA cores:
+// one block of 256 threads per (q head, 64-row q tile, batch), Q, K and V
+// tiles in dynamic shared memory as float32 (213 KB at D = 256), Q and K
+// rows padded by one float; thread t owns rows 4(t/16) .. 4(t/16)+3 of the
+// tile, for the scores at columns t%16 + 16j and for the accumulator at
+// columns t%16 + 16c, and the row statistics reduce over the 16 lanes that
+// share a row with warp shuffles.  Products are float32 multiply-adds.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float kNegInf = -1073741824.0f;  // -2^30, as the reference
+constexpr size_t kMaxSmem = 227 * 1024;
+
+// ------------------------------------------------------------ float32
+namespace f32 {
 
 constexpr int kBQ = 64;        // query rows a block
 constexpr int kBK = 64;        // keys a tile
 constexpr int kThreads = 256;  // 16 row groups of 4 rows x 16 column lanes
 constexpr int kPStride = kBK + 4;  // P rows of two row groups 16 banks apart
-constexpr float kNegInf = -1073741824.0f;  // -2^30, as the reference
-constexpr size_t kMaxSmem = 227 * 1024;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void from_f(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void from_f(float x, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 template <int D>
 struct Layout {
@@ -69,17 +97,17 @@ struct Layout {
 };
 
 // Rows [row0, row0 + kRows) of head `head` of x (B, S, nh, D) into a tile
-// of floats with row stride `stride`; rows past S are zeros.
-template <typename T, int D, int kRows>
+// with row stride `stride`; rows past S are zeros.
+template <int D, int kRows>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const T* __restrict__ x, int b,
+                                          const float* __restrict__ x, int b,
                                           int row0, int S, int nh,
                                           int head) {
   for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int s = row0 + r;
     dst[r * stride + c] =
-        s < S ? to_f(x[(((size_t)b * S + s) * nh + head) * D + c]) : 0.0f;
+        s < S ? x[(((size_t)b * S + s) * nh + head) * D + c] : 0.0f;
   }
 }
 
@@ -97,11 +125,11 @@ __device__ __forceinline__ float reduce16_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-             int H, int K, float scale, int causal, int window,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, int Sq,
+             int Skv, int H, int K, float scale, int causal, int window,
              float softcap) {
   using L = Layout<D>;
   constexpr int kCols = D / 16;  // accumulator columns a thread
@@ -124,7 +152,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_lo = kv_lo / kBK;
   const int t_hi = (kv_hi + kBK - 1) / kBK;
 
-  load_tile<T, D, kBQ>(qs, L::kQKStride, q, b, q0, Sq, H, h);
+  load_tile<D, kBQ>(qs, L::kQKStride, q, b, q0, Sq, H, h);
 
   float acc[4][kCols];
   float m[4], l[4];
@@ -139,8 +167,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // the last tile's readers are done with K, V and P
-    load_tile<T, D, kBK>(ks, L::kQKStride, k, b, k0, Skv, K, kvh);
-    load_tile<T, D, kBK>(vs, D, v, b, k0, Skv, K, kvh);
+    load_tile<D, kBK>(ks, L::kQKStride, k, b, k0, Skv, K, kvh);
+    load_tile<D, kBK>(vs, D, v, b, k0, Skv, K, kvh);
     __syncthreads();
 
     float s[4][4];
@@ -212,13 +240,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + 4 * g + i;
     if (qp >= Sq) continue;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* row = o + (((size_t)b * Sq + qp) * H + h) * D;
+    float* row = o + (((size_t)b * Sq + qp) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) from_f(acc[i][c] / lc, row + col + 16 * c);
+    for (int c = 0; c < kCols; ++c) row[col + 16 * c] = acc[i][c] / lc;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int K, int causal, int window,
            float softcap, cudaStream_t stream) {
@@ -226,34 +254,596 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   static_assert(smem <= kMaxSmem, "tiles exceed a block's shared memory");
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Sq, Skv, H, K,
-      1.0f / sqrtf((float)D), causal, window, softcap);
+  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
+      H, K, 1.0f / sqrtf((float)D), causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+}  // namespace f32
+
+// ----------------------------------------------------------- bfloat16
+namespace tc {
+
+// D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T: A and B K-major in shared
+// memory (descriptors), f32 accumulators in the m64n64 fragment layout;
+// scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D[64 x 16] += A[64 x 16] . B[16 x 16]: A in registers (the bf16
+// m64k16 fragment, 4 words a thread), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64]: A in registers (the bf16
+// m64k16 fragment, 4 words a thread), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] . B[16 x 128]: A in registers (the bf16
+// m64k16 fragment, 4 words a thread), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+        "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 256] += A[64 x 16] . B[16 x 256]: A in registers (the bf16
+// m64k16 fragment, 4 words a thread), B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "
+      "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
+      "%121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]),
+        "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]),
+        "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]),
+        "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]),
+        "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]),
+        "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+constexpr int kRows = 64;        // query rows a consumer; keys a tile
+constexpr int kConsumers = 2;    // consumer warpgroups a block
+constexpr int kStages = 2;       // K/V ring depth
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+template <int D>
+struct Cfg {
+  static constexpr int kBoxCols = D < 64 ? D : 64;  // bf16 columns a box
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kRowBytes = 2 * kBoxCols;    // 128, or 32 at D = 16
+  static constexpr int kBoxBytes = kRows * kRowBytes;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;  // 64 rows x D
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 3 = 32-byte
+  static constexpr uint32_t kLayout = kRowBytes == 128 ? 1u : 3u;
+  static constexpr int kQOff = 0;
+  static constexpr int kKOff = kConsumers * kTileBytes;
+  static constexpr int kVOff = kKOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  // + the barriers (Q, full and empty per stage) + slack to align to 1 KB
+  static constexpr size_t kBytes = kBarOff + 8 * (1 + 2 * kStages) + 1024;
+  static_assert(kRowBytes == 128 || kRowBytes == 32, "box width");
+  static_assert(kBytes <= kMaxSmem, "tiles exceed a block's shared memory");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout type.
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo, uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across its issue and its wait.
+template <int N>
+__device__ __forceinline__ void hold(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(o, a, db);
+  if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  if constexpr (D == 128) wgmma_rs_n128(o, a, db);
+  if constexpr (D == 256) wgmma_rs_n256(o, a, db);
+}
+
+// Two floats to packed bf16: hi = bf16(x), lo = bf16(x - hi), the lower
+// column in the low half as the wgmma A fragment wants it.
+__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v,
+                __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int K,
+                float scale, int causal, int window, float softcap) {
+  using C = Cfg<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms want 1 KB alignment
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base + C::kQOff, sk = base + C::kKOff,
+                 sv = base + C::kVOff, bar_q = base + C::kBarOff;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_q + 8 * (1 + kStages);
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int q0 = blockIdx.y * (kConsumers * kRows);
+  const int q1 = min(q0 + kConsumers * kRows, Sq);
+  // the band of keys any row of this block may see, in whole tiles
+  const int kv_lo = window ? max(0, q0 - window + 1) : 0;
+  const int kv_hi = causal ? min(q1, Skv) : Skv;
+  const int t_lo = kv_lo / kRows;
+  const int t_hi = max(t_lo, (kv_hi + kRows - 1) / kRows);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      int q_rows = 0;  // consumers with rows inside Sq
+      for (int c = 0; c < kConsumers; ++c) q_rows += q0 + c * kRows < Sq;
+      mbar_expect_tx(bar_q, q_rows * C::kTileBytes);
+      for (int c = 0; c < q_rows; ++c)
+        for (int x = 0; x < C::kBoxes; ++x)
+          tma_load(sq + c * C::kTileBytes + x * C::kBoxBytes, &tm_q, bar_q,
+                   x * C::kBoxCols, h, q0 + c * kRows, b);
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo, s = i % kStages;
+        const uint32_t full = bar_full + 8 * s;
+        mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * C::kTileBytes);
+        for (int x = 0; x < C::kBoxes; ++x) {
+          const uint32_t off = s * C::kTileBytes + x * C::kBoxBytes;
+          tma_load(sk + off, &tm_k, full, x * C::kBoxCols, kvh, t * kRows, b);
+          tma_load(sv + off, &tm_v, full, x * C::kBoxCols, kvh, t * kRows, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumer: 64 query rows, O and (m, l) in registers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int r0 = q0 + cw * kRows;
+    const int row = r0 + 16 * warp + lane / 4;  // and row + 8
+    const int colq = 2 * (lane % 4);
+    // the tiles this consumer's rows may see
+    int c_lo = t_hi, c_hi = t_hi;
+    if (r0 < Sq) {
+      const int lo = window ? max(0, r0 - window + 1) : 0;
+      const int hi = causal ? min(min(r0 + kRows, Sq), Skv) : Skv;
+      c_lo = max(t_lo, lo / kRows);
+      c_hi = min(t_hi, (hi + kRows - 1) / kRows);
+    }
+    const uint32_t q_tile = sq + cw * C::kTileBytes;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+    if (c_lo < c_hi) mbar_wait(bar_q, 0);
+
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int i = t - t_lo, s = i % kStages;
+      mbar_wait(bar_full + 8 * s, (i / kStages) & 1);
+      if (t >= c_lo && t < c_hi) {
+        const uint32_t k_tile = sk + s * C::kTileBytes;
+        const uint32_t v_tile = sv + s * C::kTileBytes;
+        float sc[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] = 0.0f;
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk * 16) / C::kBoxCols * C::kBoxBytes +
+                               (kk * 16) % C::kBoxCols * 2;
+          wgmma_ss_n64(
+              sc, sdesc(q_tile + off, 16, 8 * C::kRowBytes, C::kLayout),
+              sdesc(k_tile + off, 16, 8 * C::kRowBytes, C::kLayout), kk > 0);
+        }
+        wg_commit();
+        wg_wait_all();
+        hold<32>(sc);
+
+        // scale, softcap, mask (only where the band or Skv cuts the tile)
+        const int k0 = t * kRows;
+        const bool cut = k0 + kRows > Skv ||
+                         (causal && k0 + kRows - 1 > r0) ||
+                         (window && r0 + kRows - 1 - k0 >= window);
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * j + e] * scale;
+            if (softcap != 0.0f) x = tanhf(x / softcap) * softcap;
+            if (cut) {
+              const int qp = row + (e >= 2 ? 8 : 0);
+              const int kp = k0 + 8 * j + colq + (e & 1);
+              bool ok = kp < Skv && qp < Sq;
+              if (causal) ok = ok && qp >= kp;
+              if (window) ok = ok && (qp - kp) < window;
+              x = ok ? x : kNegInf;
+            }
+            sc[4 * j + e] = x;
+            if (e < 2)
+              mx0 = fmaxf(mx0, x);
+            else
+              mx1 = fmaxf(mx1, x);
+          }
+        }
+        const float mn0 = fmaxf(m0, quad_max(mx0));
+        const float mn1 = fmaxf(m1, quad_max(mx1));
+        const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        // P in two bf16 parts, as the A fragments of 4 k-steps of 16 keys
+        uint32_t phi[16], plo[16];
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p0 = expf(sc[4 * j] - mn0);
+          const float p1 = expf(sc[4 * j + 1] - mn0);
+          const float p2 = expf(sc[4 * j + 2] - mn1);
+          const float p3 = expf(sc[4 * j + 3] - mn1);
+          s0 += p0 + p1;
+          s1 += p2 + p3;
+          const int r = 4 * (j / 2) + 2 * (j % 2);
+          split2(p0, p1, phi[r], plo[r]);
+          split2(p2, p3, phi[r + 1], plo[r + 1]);
+        }
+        l0 = l0 * a0 + s0;
+        l1 = l1 * a1 + s1;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j] *= a0;
+          acc[4 * j + 1] *= a0;
+          acc[4 * j + 2] *= a1;
+          acc[4 * j + 3] *= a1;
+        }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dv =
+              sdesc(v_tile + kk * 16 * C::kRowBytes, C::kBoxBytes,
+                    8 * C::kRowBytes, C::kLayout);
+          wgmma_pv<D>(acc, phi + 4 * kk, dv);
+          wgmma_pv<D>(acc, plo + 4 * kk, dv);
+        }
+        wg_commit();
+        wg_wait_all();
+        hold<D / 2>(acc);
+        hold<16>(phi);
+        hold<16>(plo);
+      }
+      mbar_arrive(bar_empty + 8 * s);
+    }
+
+    // each thread summed its own columns of l; the quad holds the row
+    const float lc0 = fmaxf(quad_sum(l0), 1e-30f);
+    const float lc1 = fmaxf(quad_sum(l1), 1e-30f);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qp = row + 8 * half;
+      if (qp >= Sq) continue;
+      const float lc = half ? lc1 : lc0;
+      __nv_bfloat16* dst = o + (((size_t)b * Sq + qp) * H + h) * D + colq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half] / lc,
+                                  acc[4 * j + 2 * half + 1] / lc);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver function: reach it through the
+// runtime, so the library links against nothing but cudart.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Tensor map of x (B, S, nh, D) bf16 as (D, nh, S, B), boxes of
+// (kBoxCols, 1, 64, 1); zeros past the edges.
+template <int D>
+bool make_map(CUtensorMap* map, const void* x, int B, int S, int nh) {
+  using C = Cfg<D>;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)nh, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)nh * D * 2,
+                                 (cuuint64_t)S * nh * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::kBoxCols, 1, kRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                C::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int H, int K, int causal, int window,
+           float softcap, cudaStream_t stream) {
+  constexpr size_t smem = Cfg<D>::kBytes;
+  CUtensorMap mq, mk, mv;
+  if (!make_map<D>(&mq, q, B, Sq, H) || !make_map<D>(&mk, k, B, Skv, K) ||
+      !make_map<D>(&mv, v, B, Skv, K))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(H, (Sq + kConsumers * kRows - 1) / (kConsumers * kRows), B);
+  flash_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)o, Sq, Skv, H, K, 1.0f / sqrtf((float)D),
+      causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <bool kBf16, int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int H, int K, int causal, int window,
+           float softcap, cudaStream_t stream) {
+  if constexpr (kBf16)
+    return tc::launch<D>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
+                         softcap, stream);
+  else
+    return f32::launch<D>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
+                          softcap, stream);
+}
+
+template <bool kBf16>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B,
              int Sq, int Skv, int H, int K, int D, int causal, int window,
              float softcap, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
-                           softcap, stream);
+      return launch<kBf16, 16>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
+                               softcap, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
-                           softcap, stream);
+      return launch<kBf16, 64>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
+                               softcap, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
-                            softcap, stream);
+      return launch<kBf16, 128>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
+                                softcap, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
-                            softcap, stream);
+      return launch<kBf16, 256>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
+                                softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -262,9 +852,10 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q, o: (B, Sq, H, D); k, v: (B, Skv, K, D); contiguous, on one device, all
-// float32 (dtype 0) or all bfloat16 (dtype 1); K divides H; D one of 16,
-// 64, 128, 256; window 0 means none, softcap 0 means none.  Launches on
-// `stream` and returns the cudaError_t of the launch.
+// float32 (dtype 0, the CUDA-core kernel) or all bfloat16 (dtype 1, the
+// tensor-core kernel); K divides H; D one of 16, 64, 128, 256; window 0
+// means none, softcap 0 means none.  Launches on `stream` and returns the
+// cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int K, int D, int dtype,
@@ -272,14 +863,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
-  if (B > 65535 || (Sq + kBQ - 1) / kBQ > 65535)
+  if (B > 65535 || (Sq + f32::kBQ - 1) / f32::kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, Sq, Skv, H, K, D, causal, window,
+    return launch_d<false>(q, k, v, o, B, Sq, Skv, H, K, D, causal, window,
                            softcap, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, H, K, D, causal,
-                                   window, softcap, s);
+    return launch_d<true>(q, k, v, o, B, Sq, Skv, H, K, D, causal, window,
+                          softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,8 +6,10 @@ softmax attention over q (B,Sq,H,D) and k, v (B,Skv,K,D) with K | H
 (grouped-query heads), causal and/or a sliding window, an optional tanh
 softcap, float32 inside and out in q's dtype.  For tensors on the CPU it
 takes its plain version (``ref.flash_attention_ref``, a dense masked
-softmax); for CUDA tensors it launches the kernel or raises.  Every launch
-adds one to ``flash_attention_launches``.
+softmax); for CUDA tensors it launches the kernel or raises.  The C entry
+point picks the kernel by dtype: bfloat16 runs on the tensor cores
+(``wgmma`` fed by TMA), float32 on the CUDA cores.  Every launch adds one
+to ``flash_attention_launches``.
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ experiments run in one launch:
 
 * ``gp_nll_chol`` — masked batched negative log marginal likelihood: the
   covariance build, Cholesky factorization, forward solve and log-det
-  fused into one CTA per lane (``csrc/gp_nll.cu``).  It also returns its
+  fused into one launch, a cluster of 8 CTAs per lane factoring it in
+  32-column panels (``csrc/gp_nll.cu``).  It also returns its
   (L, z) residuals.  ``gp_nll`` wraps it in a ``torch.autograd.Function``
   whose backward is the *analytic* adjoint tr(S·∂K/∂θ) with
   S = ½(K⁻¹ − αα'), written batched in plain torch from those residuals —

@@ -6,7 +6,10 @@ reference kernel tests' ``_gp_case`` shapes (b = 16) and on b = 64; the
 port's autograd ``gp_nll`` (forward plain on the CPU, analytic backward)
 is held against autograd through the oracle.  The CUDA kernels themselves
 run only on the card: their test skips here and runs under
-``python3 chip_smoke.py`` / pytest on a machine with one.
+``python3 chip_smoke.py`` / pytest on a machine with one.  The blocked
+``gp_nll`` kernel's order of operations (32-column panels, the diagonal
+block, the panel rows, the trailing update) is emulated in plain torch
+and held against the Pallas kernel in interpret mode and the JAX oracle.
 """
 import jax
 import jax.numpy as jnp
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import gp as jgp
 from repro.kernels import ref as jref
 from repro_torch.kernels import gp as kgp
 from repro_torch.kernels import ops, ref
@@ -207,3 +211,80 @@ def test_cuda_kernels_match_oracles():
         ei, ei_ref = kgp.gp_ei(*args), ref.gp_ei_ref(*args)
         assert float((ei - ei_ref).abs().max()) <= \
             1e-4 * float(ei_ref.abs().max())
+
+
+# ------------------------------------------- the blocked kernel's arithmetic
+def _blocked_nll_chol(log_ls, log_amp, log_noise, x, y, mask, nb=32):
+    """Plain-torch emulation of the blocked ``gp_nll`` kernel's order
+    (``csrc/gp_nll.cu``): per panel of nb columns, the diagonal block
+    factored column by column with its part of the forward solve, the
+    panel rows below it solved against it (each column scaled by
+    sqrt(max(pivot, 1e-10)), as the reference's column loop) with the
+    right-hand side's update, then the rank-nb update of the trailing
+    lower triangle.  The panel rows are swept column by column, each
+    scaled column taken at once out of the columns right of it, as the
+    kernel's threads do.  Returns (nll, L, z) in float32."""
+    A = ref.masked_cov(log_ls, log_amp, log_noise, x, mask).clone()
+    k, b, _ = x.shape
+    z = y * mask
+    quad = torch.zeros(k)
+    logdet = torch.zeros(k)
+    for j0 in range(0, b, nb):
+        j1 = min(j0 + nb, b)
+        sd = torch.zeros(k, j1 - j0)
+        for c in range(j0, j1):            # the diagonal block
+            a = A[:, c, c].clone()
+            s = torch.sqrt(torch.clamp(a, min=1e-10))
+            sd[:, c - j0] = s
+            A[:, c, c] = a / s
+            z[:, c] = z[:, c] / A[:, c, c]
+            A[:, c + 1:j1, c] = A[:, c + 1:j1, c] / s[:, None]
+            z[:, c + 1:j1] -= A[:, c + 1:j1, c] * z[:, c:c + 1]
+            A[:, c + 1:j1, c + 1:j1] -= (A[:, c + 1:j1, c, None]
+                                         * A[:, None, c + 1:j1, c])
+        quad += (z[:, j0:j1] ** 2).sum(-1)
+        logdet += torch.log(torch.diagonal(A[:, j0:j1, j0:j1], 0, 1,
+                                           2)).sum(-1)
+        for c in range(j0, j1):            # the panel rows below (TRSM)
+            A[:, j1:, c] /= sd[:, c - j0, None]
+            z[:, j1:] -= A[:, j1:, c] * z[:, c:c + 1]
+            A[:, j1:, c + 1:j1] -= A[:, j1:, c, None] * A[:, None, c + 1:j1, c]
+        A[:, j1:, j1:] -= A[:, j1:, j0:j1] @ A[:, j1:, j0:j1].transpose(1, 2)
+    L = torch.tril(A)
+    nll = 0.5 * quad + logdet + 0.5 * mask.sum(-1) * ref._LOG_2PI
+    return nll, L, z
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("b", [16, 48, 64])
+def test_blocked_cholesky_matches_pallas_kernel(b):
+    """The blocked kernel's order against the reference Pallas kernel
+    (interpret mode) on the same ragged lanes: b = 16 is a single panel
+    narrower than nb, b = 48 ends in a half panel.  Held to chip_smoke's
+    phase-2 limit for b <= 64: 1e-4 of the max-norm, for nll, L and z."""
+    case = _gp_case(k=3, b=b, seed=b)
+    got = _blocked_nll_chol(*_t(*case))
+    want = jgp.gp_nll_chol(*(jnp.asarray(a) for a in case), interpret=True)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), np.asarray(w)) <= 1e-4
+
+
+@pytest.mark.parametrize("b,nb", [(256, 32), (200, 32), (256, 64)])
+def test_blocked_cholesky_matches_reference_at_a_larger_bucket(b, nb):
+    """Several panels and a trailing update that spans many 64-wide
+    tiles, against the JAX oracle's NLL and its factor
+    (``jnp.linalg.cholesky`` of the same masked covariance): phase 2's
+    limit for b > 64, 1e-3 of the max-norm."""
+    case = _gp_case(k=3, b=b, seed=b + nb)
+    nll, L, z = _blocked_nll_chol(*_t(*case), nb=nb)
+    assert _rel(nll.numpy(), np.asarray(jref.gp_nll_ref(*case))) <= 1e-3
+    ll, la, ln, x, y, mask = case
+    cov = np.asarray(ref.masked_cov(*_t(ll, la, ln, x, mask)))
+    want_L = np.asarray(jnp.linalg.cholesky(jnp.asarray(cov)))
+    assert _rel(L.numpy(), want_L) <= 1e-3
+    want_z = np.stack([np.asarray(jax.scipy.linalg.solve_triangular(
+        want_L[i], y[i] * mask[i], lower=True)) for i in range(len(y))])
+    assert _rel(z.numpy(), want_z) <= 1e-3

@@ -7,7 +7,12 @@ them), on the same numpy-made inputs: causal, windowed, softcapped,
 grouped-query and ragged (Sq ≠ Skv, lengths that are not tile multiples)
 attention in float32 and bfloat16, and the RG-LRU recurrence, also
 against the ``associative_scan`` the reference model runs.  The CUDA
-kernels run only on the card: their test skips here.
+kernels run only on the card: their test skips here.  What the bf16
+tensor-core kernel computes in its own order (64-key tiles, bf16 Q.K^T
+with float32 sums, online softmax, P split in two bf16 parts for P.V) is
+emulated in plain torch and held against the JAX oracle within the
+limit the card holds the kernel to; with a single bf16 P it must not
+stay within it.
 
 Tolerances: float32 results 2e-5 absolute on O(1) outputs (both sides
 compute in float32, in other orders); bfloat16 results 2e-2 absolute —
@@ -15,6 +20,8 @@ both sides compute in float32 from the same bfloat16 inputs and round
 once, so they differ by at most one bfloat16 step (2^-7 relative) of
 outputs below 2 in magnitude.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -194,3 +201,99 @@ def test_cuda_kernels_match_plain_versions():
         want = ref.rglru_scan_ref(la, b)
         assert float((got - want).abs().max()) <= 1e-5 * max(
             1.0, float(want.abs().max()))
+
+
+# ----------------------------------------------- the bf16 kernel's arithmetic
+#: the element-wise limit chip_smoke.py holds the bf16 kernel to (its
+#: FLASH_TOL["bfloat16"]): |out - ref32| <= 2^-8 |ref32| + 2^-10 rms(row)
+BF16_TOL = (2.0 ** -8, 2.0 ** -10)
+# (B, Sq, Skv, H, K, D, causal, window, softcap)
+EMULATED_CASES = {
+    "causal_d64": (1, 256, 256, 2, 1, 64, True, 0, 0.0),
+    "ragged_noncausal_d16": (2, 150, 200, 4, 2, 16, False, 0, 0.0),
+    "gqa_window": (1, 300, 300, 4, 1, 32, True, 100, 0.0),
+    "softcap": (1, 200, 200, 2, 2, 64, True, 0, 20.0),
+}
+
+
+def _tensor_core_flash(q, k, v, causal, window, softcap, split=True):
+    """Plain-torch emulation of the bf16 tensor-core kernel's arithmetic
+    (``csrc/flash_attention.cu`` ``tc::flash_tc_kernel``): per 64 query
+    rows (one consumer warpgroup), the 64-key tiles of its band in order;
+    Q.K^T of the bf16 inputs with float32 sums, scale, softcap, mask,
+    online softmax in float32; P.V with P split in P_hi = bf16(P) and
+    P_lo = bf16(P - P_hi) (``split=False``: P_hi alone); l sums the
+    float32 P; out rounded once to bf16."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)                          # (B, H, Sq, D)
+    kf = k.float().transpose(1, 2).repeat_interleave(H // K, 1)
+    vf = v.float().transpose(1, 2).repeat_interleave(H // K, 1)
+    out = torch.zeros(B, H, Sq, D)
+    for r0 in range(0, Sq, 64):
+        r1 = min(r0 + 64, Sq)
+        lo = max(0, r0 - window + 1) if window else 0
+        hi = min(r1, Skv) if causal else Skv
+        m = torch.full((B, H, r1 - r0, 1), ref.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, H, r1 - r0, D)
+        qp = torch.arange(r0, r1)[:, None]
+        for t in range(lo // 64, -(-hi // 64)):
+            k0, k1 = 64 * t, min(64 * t + 64, Skv)
+            s = (qf[:, :, r0:r1] @ kf[:, :, k0:k1].transpose(-1, -2)
+                 / math.sqrt(D))
+            if softcap:
+                s = torch.tanh(s / softcap) * softcap
+            kp = torch.arange(k0, k1)[None, :]
+            ok = torch.ones((r1 - r0, k1 - k0), dtype=torch.bool)
+            if causal:
+                ok &= qp >= kp
+            if window:
+                ok &= (qp - kp) < window
+            s = torch.where(ok, s, torch.tensor(ref.NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            p_hi = p.bfloat16().float()
+            acc = acc * alpha + p_hi @ vf[:, :, k0:k1]
+            if split:
+                acc = acc + (p - p_hi).bfloat16().float() @ vf[:, :, k0:k1]
+            m = m_new
+        out[:, :, r0:r1] = acc / l.clamp(min=1e-30)
+    return out.transpose(1, 2).bfloat16()
+
+
+def _excess(out, ref32):
+    """Largest ratio of |out - ref32| to the BF16_TOL element limit."""
+    rtol, c = BF16_TOL
+    rms = ref32.square().mean(-1, keepdim=True).sqrt()
+    lim = rtol * ref32.abs() + c * rms
+    return float(((out.float() - ref32).abs() / lim).max())
+
+
+def _emulated_case(name):
+    case = EMULATED_CASES[name]
+    causal, window, softcap = case[6:]
+    jx, tx = _flash_inputs(case, "bf16", seed=5)
+    ref32 = torch.from_numpy(np.array(jref.flash_attention_ref(
+        *(a.astype(jnp.float32) for a in jx), causal=causal, window=window,
+        softcap=softcap)))
+    return tx, (causal, window, softcap), ref32
+
+
+@pytest.mark.parametrize("name", list(EMULATED_CASES))
+def test_tensor_core_arithmetic_within_the_bf16_limit(name):
+    """The bf16 kernel's arithmetic (split P) stays within the limit the
+    card holds the kernel to, against the JAX float32 oracle on the same
+    bf16 inputs."""
+    tx, opts, ref32 = _emulated_case(name)
+    assert _excess(_tensor_core_flash(*tx, *opts), ref32) <= 1.0
+
+
+@pytest.mark.parametrize("name", list(EMULATED_CASES))
+def test_single_bf16_probabilities_exceed_the_bf16_limit(name):
+    """Why P is split: one bf16 rounding of P (2^-9/sqrt(3) of the row's
+    rms an element) does not stay within the same limit."""
+    tx, opts, ref32 = _emulated_case(name)
+    assert _excess(_tensor_core_flash(*tx, *opts, split=False), ref32) > 1.0
