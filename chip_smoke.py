@@ -11,8 +11,9 @@ script exits non-zero and prints no result):
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once);
    ptxas's registers and spill bytes for each compiled function, and the
    count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
-   the flash-attention library's SASS (``cuobjdump -sass``), which fails
-   the run when either is 0.
+   the flash-attention library's SASS (``cuobjdump -sass``) and of
+   ``LDGSTS`` (cp.async) in gp_ei's and rglru_scan's, which fails the run
+   when any is 0.
 2. kernels against their plain PyTorch versions on the card —
    ``gp_nll_chol``, ``gp_fit_grads`` through the autograd backward, and
    ``gp_ei`` over k lanes x b bucket (ragged masks, inert all-zero-mask
@@ -21,8 +22,12 @@ script exits non-zero and prints no result):
    function, that call's time; ``gp_nll_chol`` and ``gp_fit_grads`` also
    at b = 1024 and 2048 (k = 1 and 4) and at b = 1024 with 20 dimensions,
    held to the float64 oracle (no further from it than 1e-3 or twice the
-   plain version); ``gp_ei`` alone also at b = 1024 (the largest v tile
-   shared memory holds) and 2048 (v in global scratch);
+   plain version); ``gp_ei`` alone also at b = 1024 and 2048 and at
+   ragged shapes (b = 37 and 100, m = 1001), every ``gp_ei`` case beside
+   ``torch.linalg.solve_triangular`` on the same substitution
+   (``trsm_ms``); at k = 1, b = 512 ``gp_ei`` with V in global scratch
+   (as past b = 5984) within the same limit, and a plain EI whose panel 8
+   skips its update from the panels above must fail it;
    then the GP numerics on the card against the same numerics on the CPU
    at a small size, and the host wall time of each GP call of the ask
    path at the paper's size, one thread alone.
@@ -39,7 +44,10 @@ script exits non-zero and prints no result):
    a softcap, ragged (Sq != Skv, not tile multiples) and at D = 64 and 16
    in both types, and with 4 query heads a KV head and a window at
    D = 128;
-   ``rglru_scan`` at the serve shape and a ragged one — each with its
+   ``rglru_scan`` at the serve shape, a ragged one, S = 1, S = one time
+   tile + 1 and R = 999 (4-byte staging), and at the serve shape a plain
+   scan that drops the carry into every tile after the first must fail
+   its limit — each with its
    error, its time by CUDA events, its bound, the plain version's time and
    ``F.scaled_dot_product_attention``'s (band mask, ``enable_gqa``) as the
    library yardstick for attention.  Attention is held element by element
@@ -77,6 +85,11 @@ script exits non-zero and prints no result):
    rank's launches, its new error bit for bit, its reduced tensor within
    4 float32 ulps of the float64 mean of the ranks' sent tensors.
 
+7. device times — ``gp_ei`` at every case of phase 2 and ``rglru_scan``
+   at every case of phase 4 again, on the same inputs, by torch.profiler:
+   the kernels' own time, which at small shapes the CUDA-event time of a
+   wrapper call (the host's) hides.  Last, after every end-to-end run.
+
 The last lines are the kernels' summary, the card's name and power limit,
 and ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -108,10 +121,14 @@ PEAK_BYTES = 3.35e12
 
 KS = (1, 4, 8, 16)
 BS = (16, 64, 256, 512)
-#: buckets past the paper's budget, for gp_ei alone (k = 1): 1024 is the
-#: largest whose v tile fits a block's shared memory, 2048 spills it to
-#: global scratch
+#: buckets past the paper's budget, for gp_ei alone (k = 1)
 EI_BS = (1024, 2048)
+#: (k, b, m) for gp_ei alone at ragged shapes: b = 37 leaves its last panel
+#: 5 rows and its rows not 16-byte aligned (4-byte staging), b = 100 a
+#: 4-row last panel; m = 1001 a last tile of one candidate
+EI_RAGGED = ((3, 37, 1001), (2, 100, 1001))
+#: the panel whose update the planted gp_ei fault skips at MAIN_EI
+EI_FAULT_PANEL = 8
 D = 3
 M = 1280            # candidate pool on the path: 1024 + 1024 // 4
 #: buckets past the paper's budget for gp_nll_chol and gp_fit_grads, at
@@ -131,8 +148,11 @@ MAIN_EI = (1, 512)   # one lane per exact ask, history in bucket 512
 #: 60 trials outrun the service and every suggest is a miss)
 TRIAL_SECONDS = 3.0
 
-#: SASS of the bf16 flash kernel: wgmma (HGMMA) and TMA loads (UTMALDG)
-SASS_OPS = ("HGMMA", "UTMALDG")
+#: instructions each library's SASS must hold: the bf16 flash kernel's
+#: wgmma (HGMMA) and TMA loads (UTMALDG); gp_ei's and rglru_scan's
+#: cp.async staging (LDGSTS)
+SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"), "gp_ei": ("LDGSTS",),
+            "rglru_scan": ("LDGSTS",)}
 
 RESULTS = {}
 
@@ -185,6 +205,28 @@ def time_ms(fn, budget_s: float = 0.15) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, names, n: int = 20) -> float:
+    """Device time a call of ``fn`` spends in the kernels whose names hold
+    one of ``names``, by torch.profiler over n warmed calls: the kernels'
+    own time, where ``time_ms`` of a small call reads the host's.  Only
+    after the end-to-end phases: once started, the profiler can slow
+    later host-bound work (phase 5's decode read slower in runs that had
+    profiled before it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and any(k in e.name for k in names))
+    check(us > 0, f"the profiler saw none of {names}")
+    return us / 1e3 / n
+
+
 def matern_flops(d: int) -> int:
     """Operations of one Matérn-5/2 ARD entry: per dimension a
     difference, a scaling and a multiply-add (3d); then the square root,
@@ -235,17 +277,18 @@ def phase_card():
          build_wall_s=wall, build_s=dict(_build.build_seconds))
     for name, log in _build.ptxas_report.items():
         emit("ptxas", kernel=name, functions=ptxas_functions(log))
-    # the bf16 flash kernel must run on the tensor cores, fed by TMA
-    sass = subprocess.run(
-        [_build.tool("cuobjdump"), "-sass",
-         str(_build.library_path("flash_attention"))],
-        capture_output=True, text=True, timeout=120)
-    check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()}")
-    counts = {op: len(re.findall(rf"\b{op}\b", sass.stdout))
-              for op in SASS_OPS}
-    emit("sass", library="flash_attention", counts=counts)
-    check(all(counts.values()),
-          f"flash_attention SASS lacks tensor-core or TMA ops: {counts}")
+    # the bf16 flash kernel must run on the tensor cores, fed by TMA, and
+    # gp_ei and rglru_scan must stage through cp.async
+    for lib, ops in SASS_OPS.items():
+        sass = subprocess.run(
+            [_build.tool("cuobjdump"), "-sass",
+             str(_build.library_path(lib))],
+            capture_output=True, text=True, timeout=120)
+        check(sass.returncode == 0, f"cuobjdump: {sass.stderr.strip()}")
+        counts = {op: len(re.findall(rf"\b{op}\b", sass.stdout))
+                  for op in ops}
+        emit("sass", library=lib, counts=counts)
+        check(all(counts.values()), f"{lib} SASS lacks {counts}")
     return card
 
 
@@ -370,40 +413,108 @@ def nll_case(k: int, b: int, dev, d: int = D):
     return fields, abs_err, (ll, la, ln, x, y, mask)
 
 
-def phase_kernels():
+def ei_inputs(ll, la, ln, x, y, mask, m: int, seed: int):
+    """``gp_ei``'s arguments for a case's lanes: the plain posterior
+    factors, and (y_mean, y_std, cand (k, m, d), best) drawn from seed."""
+    from repro_torch.kernels import ref
+    chol = ref.cholesky(ref.masked_cov(ll, la, ln, x, mask))
+    alpha = torch.cholesky_solve((y * mask)[..., None], chol)[..., 0]
+    rng = np.random.default_rng(seed)
+    k, _, d = x.shape
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32,  # noqa: E731
+                                  device=x.device)
+    return tuple(a.contiguous() for a in (
+        ll, la, x, mask, chol, alpha, t(rng.standard_normal(k)),
+        t(rng.uniform(0.5, 2.0, k)), t(rng.random((k, m, d))),
+        t(rng.standard_normal(k))))
+
+
+def ei_case(args, lim: float):
+    """``gp_ei`` against its plain version on ``args``, checked and timed,
+    with ``torch.linalg.solve_triangular`` on the same substitution
+    (V = L⁻¹kqᵀ over every lane, the part of EI that dominates) as its
+    yardstick -> (fields, kernel ei, plain ei)."""
     from repro_torch.kernels import gp as kgp
     from repro_torch.kernels import ref
+    ll, la, x, mask, chol = args[:5]
+    cand = args[8]
+    k, b, d = x.shape
+    m = cand.shape[1]
+    ei = kgp.gp_ei(*args)
+    torch.cuda.synchronize()
+    p_ei = ref.gp_ei_ref(*args)
+    e_err = rel_err(ei, p_ei)
+    check(math.isfinite(e_err) and e_err <= lim,
+          f"gp_ei k={k} b={b} m={m}: {e_err} > {lim}")
+    kq_t = (ref._matern52(cand, x, ll, la)
+            * mask[:, None, :]).transpose(-1, -2).contiguous()
+    e_bound, e_by = bound_ms(*ei_work(k, b, d, m))
+    fields = dict(
+        m=m, ei_limit=lim, ei_rel_err=e_err,
+        gp_ei_ms=time_ms(lambda: kgp.gp_ei(*args)),
+        gp_ei_plain_ms=time_ms(lambda: ref.gp_ei_ref(*args)),
+        gp_ei_bound_ms=e_bound, gp_ei_bound_by=e_by,
+        trsm_ms=time_ms(lambda: torch.linalg.solve_triangular(
+            chol, kq_t, upper=False)))
+    return fields, ei, p_ei
+
+
+def ei_blocked_plain(args, skip_panel: int = -1, nb: int = 32):
+    """Plain EI with V = L⁻¹kqᵀ solved in panels of nb rows, the order of
+    the kernel's panels: when ``skip_panel`` names one, that panel's
+    update from the panels above it is left out (the planted fault)."""
+    from repro_torch.kernels import ref
+    ll, la, x, mask, chol, alpha, y_mean, y_std, cand, best = args
+    kq = ref._matern52(cand, x, ll, la) * mask[:, None, :]
+    mu = (kq @ alpha[..., None])[..., 0]
+    rhs = kq.transpose(-1, -2)
+    v = torch.zeros_like(rhs)
+    for r0 in range(0, x.shape[1], nb):
+        r1 = min(r0 + nb, x.shape[1])
+        part = rhs[:, r0:r1]
+        if r0 // nb != skip_panel:
+            part = part - chol[:, r0:r1, :r0] @ v[:, :r0]
+        v[:, r0:r1] = torch.linalg.solve_triangular(
+            chol[:, r0:r1, r0:r1], part, upper=False)
+    return ref.ei_closed_form(mu, v, la, y_mean, y_std, best)
+
+
+def phase_kernels():
+    from repro_torch.kernels import gp as kgp
     dev = torch.device("cuda", 0)
     summary = {}
     for k in KS:
         for b in BS:
             lim = 1e-4 if b <= 64 else 1e-3
-            nll_fields, abs_err, (ll, la, ln, x, y, mask) = nll_case(k, b,
-                                                                     dev)
+            nll_fields, abs_err, case = nll_case(k, b, dev)
             # gp_ei: kernel vs plain on the plain posterior factors
-            chol = ref.cholesky(ref.masked_cov(ll, la, ln, x, mask))
-            alpha = torch.cholesky_solve((y * mask)[..., None], chol)[..., 0]
-            rng = np.random.default_rng(k + b)
-            t = lambda a: torch.as_tensor(a, dtype=torch.float32,
-                                          device=x.device)
-            y_mean = t(rng.standard_normal(k))
-            y_std = t(rng.uniform(0.5, 2.0, k))
-            cand = t(rng.random((k, M, D)))
-            best = t(rng.standard_normal(k))
-            ei_args = tuple(a.contiguous() for a in (
-                ll, la, x, mask, chol, alpha, y_mean, y_std, cand, best))
-            ei = kgp.gp_ei(*ei_args)
-            torch.cuda.synchronize()
-            p_ei = ref.gp_ei_ref(*ei_args)
-            e_err = rel_err(ei, p_ei)
-            check(math.isfinite(e_err) and e_err <= lim,
-                  f"gp_ei k={k} b={b}: {e_err} > {lim}")
-            ei_ms = time_ms(lambda: kgp.gp_ei(*ei_args))
-            ei_plain = time_ms(lambda: ref.gp_ei_ref(*ei_args))
-            e_bound, e_by = bound_ms(*ei_work(k, b, D, M))
-            emit("kernel_case", **nll_fields, m=M, ei_rel_err=e_err,
-                 gp_ei_ms=ei_ms, gp_ei_plain_ms=ei_plain,
-                 gp_ei_bound_ms=e_bound, gp_ei_bound_by=e_by)
+            ei_args = ei_inputs(*case, m=M, seed=k + b)
+            ei_fields, ei, p_ei = ei_case(ei_args, lim)
+            extra = {}
+            if (k, b) == MAIN_EI:
+                # V kept in global scratch, as past b = 5984: the same
+                # arithmetic as the shared-memory path
+                with patched(kgp, EI_FORCE_SCRATCH=True):
+                    eg = kgp.gp_ei(*ei_args)
+                    torch.cuda.synchronize()
+                    extra["scratch_ms"] = time_ms(
+                        lambda: kgp.gp_ei(*ei_args))
+                extra["scratch_rel_err"] = rel_err(eg, p_ei)
+                extra["scratch_vs_shared_abs"] = float((eg - ei).abs().max())
+                check(extra["scratch_rel_err"] <= lim,
+                      f"gp_ei global-scratch path: {extra}")
+                # the blocked plain order agrees; skipping one panel's
+                # update must fail the limit
+                extra["blocked_plain_rel_err"] = rel_err(
+                    ei_blocked_plain(ei_args), p_ei)
+                check(extra["blocked_plain_rel_err"] <= lim,
+                      f"blocked plain EI: {extra['blocked_plain_rel_err']}")
+                extra["planted_panel_skipped_rel_err"] = rel_err(
+                    ei_blocked_plain(ei_args, EI_FAULT_PANEL), p_ei)
+                check(extra["planted_panel_skipped_rel_err"] > lim,
+                      f"planted fault (panel {EI_FAULT_PANEL} not updated) "
+                      f"passes: {extra['planted_panel_skipped_rel_err']}")
+            emit("kernel_case", **nll_fields, **ei_fields, **extra)
             if (k, b) == MAIN_NLL:
                 summary["gp_nll"] = dict(
                     max_abs_err=abs_err, ms=nll_fields["gp_nll_ms"],
@@ -413,33 +524,20 @@ def phase_kernels():
                     library_ms=nll_fields["cholesky_ex_ms"])
             if (k, b) == MAIN_EI:
                 summary["gp_ei"] = dict(
-                    max_abs_err=float((ei - p_ei).abs().max()), ms=ei_ms,
-                    plain_ms=ei_plain, bound_ms=e_bound, bound_by=e_by,
-                    library_ms=None)
+                    max_abs_err=float((ei - p_ei).abs().max()),
+                    ms=ei_fields["gp_ei_ms"],
+                    plain_ms=ei_fields["gp_ei_plain_ms"],
+                    bound_ms=ei_fields["gp_ei_bound_ms"],
+                    bound_by=ei_fields["gp_ei_bound_by"], library_ms=None)
             torch.cuda.synchronize()
     for k, b, d in [(k, b, D) for k in NLL_KS for b in NLL_BS] + [NLL_WIDE]:
         emit("kernel_case_nll", **nll_case(k, b, dev, d)[0])
         torch.cuda.empty_cache()
-    for b in EI_BS:
-        ll, la, ln, x, y, mask = gp_case(1, b, seed=b, dev=dev)
-        chol = ref.cholesky(ref.masked_cov(ll, la, ln, x, mask))
-        alpha = torch.cholesky_solve((y * mask)[..., None], chol)[..., 0]
-        rng = np.random.default_rng(b)
-        t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-        ei_args = (ll, la, x, mask, chol.contiguous(), alpha.contiguous(),
-                   t(rng.standard_normal(1)), t(rng.uniform(0.5, 2.0, 1)),
-                   t(rng.random((1, M, D))), t(rng.standard_normal(1)))
-        ei = kgp.gp_ei(*ei_args)
-        torch.cuda.synchronize()
-        p_ei = ref.gp_ei_ref(*ei_args)
-        e_err = rel_err(ei, p_ei)
-        check(math.isfinite(e_err) and e_err <= 1e-3,
-              f"gp_ei k=1 b={b}: {e_err} > 1e-3")
-        e_bound, e_by = bound_ms(*ei_work(1, b, D, M))
-        emit("kernel_case_ei", k=1, b=b, d=D, m=M, limit=1e-3,
-             ei_rel_err=e_err, gp_ei_ms=time_ms(lambda: kgp.gp_ei(*ei_args)),
-             gp_ei_plain_ms=time_ms(lambda: ref.gp_ei_ref(*ei_args)),
-             gp_ei_bound_ms=e_bound, gp_ei_bound_by=e_by)
+    for k, b, m in [(1, b, M) for b in EI_BS] + list(EI_RAGGED):
+        case = gp_case(k, b, seed=b if k == 1 else b + k, dev=dev)
+        fields, _, _ = ei_case(ei_inputs(*case, m=m, seed=b),
+                               1e-4 if b <= 64 else 1e-3)
+        emit("kernel_case_ei", k=k, b=b, d=D, **fields)
         torch.cuda.synchronize()
     return summary
 
@@ -657,8 +755,13 @@ FLASH_CASES = (
      "bfloat16"),
     ("gqa4_window", 2, 1500, 1500, 16, 4, 128, True, 1000, 0.0, "bfloat16"),
 )
-#: (name, B, S, R); the first is the serve shape of an RG-LRU layer
-SCAN_CASES = (("serve", 4, 3000, 2560), ("ragged", 3, 1001, 1000))
+#: (name, B, S, R); the first is the serve shape of an RG-LRU layer.  The
+#: kernel's tiles are 64 steps x 64 features: S = 1 is one partial tile,
+#: S = 65 a full tile and one step of the next (R = 1000 ends in a
+#: 40-feature strip), R = 999 takes the 4-byte staging path
+SCAN_CASES = (("serve", 4, 3000, 2560), ("ragged", 3, 1001, 1000),
+              ("s1", 2, 1, 1000), ("tile_plus_1", 3, 65, 1000),
+              ("unaligned", 2, 129, 999))
 #: element-wise limit (rtol, c) of the kernel against the float32 oracle
 #: on the same inputs: |out - ref32| <= rtol |ref32| + c rms(ref32's row),
 #: a row being one (batch, query, head) output vector.  bf16: one rounding
@@ -778,6 +881,8 @@ def phase_lm_kernels():
                 bound_ms=bound, bound_by=by, library_ms=lib_ms)
         del q, k, v, out
         torch.cuda.empty_cache()
+    check(krg.TIME_TILE + 1 == SCAN_CASES[3][2], "tile_plus_1 is not one "
+          f"step past the kernel's {krg.TIME_TILE}-step tile")
     for name, B, S, R in SCAN_CASES:
         gen.manual_seed(S + R)
         la = -0.5 * torch.rand((B, S, R), generator=gen, device=dev)
@@ -789,12 +894,24 @@ def phase_lm_kernels():
         lim = SCAN_LIMIT * max(1.0, float(want.abs().max()))
         check(math.isfinite(abs_err) and abs_err <= lim,
               f"rglru_scan {name}: {abs_err} > {lim}")
+        planted = None
+        if name == "serve":
+            # the limit must see the carry into a tile go missing: each
+            # time tile after the first scanned from h = 0
+            tiles = [ref.rglru_scan_ref(la[:, t:t + krg.TIME_TILE],
+                                        b[:, t:t + krg.TIME_TILE])
+                     for t in range(0, S, krg.TIME_TILE)]
+            planted = float((torch.cat(tiles, 1) - want).abs().max()) / lim
+            check(planted > 1.0,
+                  f"planted fault (no carry between tiles) passes: {planted}")
+            del tiles
         ms = time_ms(lambda: krg.rglru_scan(la, b))
         plain_ms = time_ms(lambda: ref.rglru_scan_ref(la, b))
         bound, by = bound_ms(3 * B * S * R, 12 * B * S * R)
         emit("rglru_case", case=name, B=B, S=S, R=R, limit=lim,
-             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-             bound_by=by, library_ms=None)
+             max_abs_err=abs_err, planted_no_carry_excess=planted, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+             library_ms=None)
         if name == "serve":
             summary["rglru_scan"] = dict(
                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -820,11 +937,17 @@ LOGITS_FACTOR = 2.0
 PROFILED_STEPS = 8
 
 
+#: the port's own kernels, by a part of their names, which a device
+#: profile reports whether or not they rank in its top
+OWN_KERNELS = ("flash_", "rglru_kernel", "ei_kernel", "inv_kernel",
+               "nll_", "quant")
+
+
 def device_profile(run, top: int = 12):
     """Run ``run`` under torch.profiler: its wall time (ms, synchronised,
     with the profiler's own host cost), the device's busy time (the union
-    of its kernels' spans, ms) and its kernels by device time, the most
-    first."""
+    of its kernels' spans, ms), its kernels by device time, the most
+    first, and the port's own kernels among them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -851,7 +974,10 @@ def device_profile(run, top: int = 12):
                 device_idle_share=1.0 - busy / 1e3 / wall_ms,
                 device_kernels=len(kernels),
                 top=[dict(kernel=name[:90], ms=ms, launches=n)
-                     for name, (ms, n) in ranked])
+                     for name, (ms, n) in ranked],
+                own=[dict(kernel=name[:90], ms=ms, launches=n)
+                     for name, (ms, n) in by_name.items()
+                     if any(k in name for k in OWN_KERNELS)])
 
 
 def phase_serve():
@@ -1243,6 +1369,12 @@ def phase_compress():
             with patched(ops, int8_quantize=ref.int8_quant_ref):
                 for i in reversed(range(n_leaves)):
                     g, r = g_l.pop(), r_l.pop()
+                    if i == 0:
+                        # the plain path's 2.6 GB temporaries of the
+                        # embedding leaf can find the ~13 GB the cache
+                        # holds free too fragmented for one of them (an
+                        # OOM at ~60 GB of 80 on the H100): hand it back
+                        torch.cuda.empty_cache()
                     pr, pe = compress.compressed_psum(g, e_l[i])
                     equal &= torch.equal(pr, r) and torch.equal(pe, ne_l[i])
                     # world size 1: reduced is what was sent
@@ -1380,6 +1512,39 @@ def phase_compress_ranks():
          limit_ulps=RANK_ULPS, stats=stats)
 
 
+# ------------------------------------------------------------- phase 7
+def phase_device_times():
+    """The device time of ``gp_ei`` at every case of phase 2 and of
+    ``rglru_scan`` at every case of phase 4, on the same inputs (the same
+    seeds), by torch.profiler: at small shapes the CUDA-event time of a
+    wrapper call is the host's.  Last, so the profiler runs after every
+    end-to-end measurement."""
+    from repro_torch.kernels import gp as kgp
+    from repro_torch.kernels import rglru_scan as krg
+    dev = torch.device("cuda", 0)
+    ei = ("ei_kernel", "inv_kernel")
+    for k in KS:
+        for b in BS:
+            args = ei_inputs(*gp_case(k, b, seed=1000 * k + b, dev=dev), m=M,
+                             seed=k + b)
+            emit("device_time", kernel="gp_ei", k=k, b=b, m=M,
+                 ms=device_ms(lambda: kgp.gp_ei(*args), ei))
+    for k, b, m in [(1, b, M) for b in EI_BS] + list(EI_RAGGED):
+        args = ei_inputs(*gp_case(k, b, seed=b if k == 1 else b + k, dev=dev),
+                         m=m, seed=b)
+        emit("device_time", kernel="gp_ei", k=k, b=b, m=m,
+             ms=device_ms(lambda: kgp.gp_ei(*args), ei))
+    gen = torch.Generator(device=dev)
+    for name, B, S, R in SCAN_CASES:
+        gen.manual_seed(S + R)
+        la = -0.5 * torch.rand((B, S, R), generator=gen, device=dev)
+        b = torch.randn((B, S, R), generator=gen, device=dev)
+        emit("device_time", kernel="rglru_scan", case=name, B=B, S=S, R=R,
+             ms=device_ms(lambda: krg.rglru_scan(la, b),
+                          ("rglru_kernel", "Memset")))
+        del la, b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1394,6 +1559,7 @@ def main() -> int:
     summary.update(phase_quant_kernels())
     launches.update(phase_compress())
     phase_compress_ranks()
+    phase_device_times()
     kernels = [
         dict(name="gp_nll", route="cuda",
              source="src/repro_torch/kernels/csrc/gp_nll.cu",

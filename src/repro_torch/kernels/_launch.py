@@ -9,6 +9,7 @@ through the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -71,6 +72,27 @@ def _check(name, t, shape, device, dtype=torch.float32):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def on_device(dev: torch.device):
+    """A context in which ``dev`` is the current CUDA device: nothing to
+    do when it already is (``torch.cuda.device`` costs a few microseconds
+    of host time a call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def current_stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev`` as the int a C entry point
+    takes (``torch._C._cuda_getCurrentRawStream`` where the build has it,
+    as Triton's launcher reads it: ``torch.cuda.current_stream`` builds a
+    Python object a call)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def _raise_on(err: int, what: str) -> None:

@@ -1,5 +1,6 @@
 // rglru_scan: the RG-LRU linear recurrence h_t = exp(log_a_t) * h_{t-1} + b_t
-// from h_0 = 0, on Hopper (sm_90a), one thread per (batch, feature).
+// from h_0 = 0, on Hopper (sm_90a), as a single-pass chunked scan across
+// time, the carry passed from tile to tile.
 //
 // Replaces: src/repro/kernels/rglru_scan.py : rglru_scan / _rglru_kernel,
 // the Pallas TPU kernel (feature tiles in VMEM, time the innermost
@@ -7,85 +8,244 @@
 //
 // What bounds it on this card: bytes.  It reads log_a and b and writes h,
 // 12 bytes a (b, t, r) element, and does 3 operations on each: at the
-// serve shape (4, 3000, 2560) that is 369 MB, 0.11 ms at 3.35 TB/s.  But
-// the recurrence is a chain of S dependent multiply-adds per feature, and
-// only B * R threads exist to walk it (10 240 at the serve shape, about
-// 2.4 warps an SM), so the kernel is bound by how many loads it keeps in
-// flight, not by the memory's rate.
+// serve shape (4, 3000, 2560) that is 369 MB, 0.11 ms at 3.35 TB/s.  To
+// reach that rate the card needs megabytes of loads in flight, but the
+// recurrence is a chain along time: one thread walking the whole time axis
+// of a feature leaves only B * R threads (10 240 at the serve shape, 2.4
+// warps an SM) to keep loads in flight.
 //
-// What the design does about it: grid = (ceil(R / 256), B), one thread a
-// feature, so a warp's loads of one time step are one coalesced 128-byte
-// line of each input and its stores one line of h.  No load depends on h,
-// so the thread walks time in chunks of kAhead steps and issues the next
-// chunk's 2 * kAhead loads (and their expf) before it runs the current
-// chunk's chain: the chain then waits on arithmetic, and each warp keeps
-// 2 * kAhead loads in flight.  A chunked two-pass scan across blocks (to
-// put more threads on the time axis) is later work.  expf, not __expf:
-// the reference's exp is the accurate one.
+// What the design does about it: threads go on the time axis too.  One
+// block of 256 threads per tile of kT = 64 time steps x kF = 64 features
+// (two 32-feature strips) of one batch row; at the serve shape that is
+// 7520 blocks, about 6 resident an SM, each with its whole 32 KB tile of
+// log_a and b in flight at once.
+// - The tile is staged into shared memory with cp.async, each warp's
+//   copies 128-byte lines along the features (16 bytes a thread; 4-byte
+//   copies when R or a pointer is not 16-byte aligned), zero-filled past S
+//   and R (log_a = 0, b = 0 leaves h as it is).
+// - Pass 1: each thread scans one sub-chunk of kL = 16 steps of one
+//   feature from 0, storing a = expf(log_a) back in place, and leaves the
+//   sub-chunk's pair (A = prod a, H = its end state from 0); the first
+//   kSub = 4 threads of a feature fold them into the tile's pair.
+// - The carry: each of the first kF threads waits for the state after the
+//   tile before (one 64-bit word a feature, the float and a published
+//   flag together, read with ld.acquire), and publishes the state after
+//   its own tile, A * carry + H, with st.release.  The hop from tile to
+//   tile is one L2 round trip, and pass 1 of the tiles in flight overlaps
+//   it.  A decoupled look-back, which composes the pairs of tiles whose
+//   states are not yet published, would shorten that chain but round as
+//   the timing falls, so two runs of the same inputs could differ; a
+//   served prefill must repeat bit for bit (chip_smoke.py phase 5 runs it
+//   twice), so the carry is always the predecessor's state, in one fixed
+//   order.  Tiles take their place in time from an atomic ticket,
+//   time-major, so a block only ever waits on a block that holds an
+//   earlier ticket and so is running or done: no block waits on one that
+//   was never scheduled.
+// - Pass 2: each thread runs the recurrence over its 16 steps again from
+//   shared memory, starting from its carry-in (the tile's carry through
+//   the sub-chunks before it), and writes h once, 128-byte lines a warp.
+// Global traffic: log_a and b read once, h written once, plus 8 bytes a
+// (tile, feature) of state, zeroed, written and read once (2% at the
+// serve shape).  One wrapper call runs one memset (the states and the
+// ticket) and one kernel.
+// expf, not __expf: the reference's exp is the accurate one.  The carry is
+// reassociated (a product of a's times a state): within 1e-5 of the
+// sequential recurrence.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;  // features per block
-constexpr int kAhead = 16;     // time steps loaded ahead of the chain
+constexpr int kF = 64;              // features a tile
+constexpr int kT = 64;              // time steps a tile
+constexpr int kSub = 4;             // sub-chunks a tile
+constexpr int kL = kT / kSub;       // time steps a sub-chunk
+constexpr int kThreads = kF * kSub;
 
-__device__ __forceinline__ void load_chunk(const float* __restrict__ la,
-                                           const float* __restrict__ bb,
-                                           int t0, int S, int R,
-                                           float (&a)[kAhead],
-                                           float (&b)[kAhead]) {
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.b64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+struct Scratch {
+  int* ticket;               // (1,)
+  // (chains * tiles, kF): the state after a tile, as one word a feature,
+  // its float's bits below and 1 above once published (0 before)
+  unsigned long long* state;
+};
+
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
+             float* __restrict__ h_out, Scratch sc, int B, int S, int R) {
+  __shared__ __align__(16) float a_s[kT][kF];
+  __shared__ __align__(16) float b_s[kT][kF];
+  __shared__ float sub_a[kSub][kF], sub_h[kSub][kF];
+  __shared__ float carry_s[kF];
+  __shared__ int ticket_s;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) ticket_s = atomicAdd(sc.ticket, 1);
+  __syncthreads();
+  const int strips = (R + kF - 1) / kF;
+  const int tiles = (S + kT - 1) / kT;
+  const int chains = B * strips;
+  const int ticket = ticket_s;
+  const int tile = ticket / chains, chain = ticket - tile * chains;
+  const int bi = chain / strips, f0 = (chain - bi * strips) * kF;
+  const int t0 = tile * kT;
+  const size_t base = (size_t)bi * S * R;
+
+  // ---- stage the tile
+  if (kAligned) {
+    for (int ch = tid; ch < kT * kF / 4; ch += kThreads) {
+      const int row = ch / (kF / 4), col = 4 * (ch % (kF / 4));
+      const int t = t0 + row, f = f0 + col;
+      const bool ok = t < S && f < R;  // R % 4 == 0: f < R covers f + 3
+      const size_t off = ok ? base + (size_t)t * R + f : 0;
+      cp16(&a_s[row][col], log_a + off, ok);
+      cp16(&b_s[row][col], b + off, ok);
+    }
+  } else {
+    for (int e = tid; e < kT * kF; e += kThreads) {
+      const int row = e / kF, col = e % kF;
+      const int t = t0 + row, f = f0 + col;
+      const bool ok = t < S && f < R;
+      const size_t off = ok ? base + (size_t)t * R + f : 0;
+      cp4(&a_s[row][col], log_a + off, ok);
+      cp4(&b_s[row][col], b + off, ok);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  // ---- pass 1: thread (sub-chunk s, feature f) from 0
+  const int f = tid % kF, s = tid / kF;
+  {
+    float A = 1.0f, H = 0.0f;
 #pragma unroll
-  for (int i = 0; i < kAhead; ++i) {
-    const int t = t0 + i;
-    // past the end: a = exp(0) = 1, b = 0 leaves h as it is
-    const bool in = t < S;
-    a[i] = in ? expf(__ldg(la + (size_t)t * R)) : 1.0f;
-    b[i] = in ? __ldg(bb + (size_t)t * R) : 0.0f;
+    for (int i = 0; i < kL; ++i) {
+      const int row = s * kL + i;
+      const float a = expf(a_s[row][f]);
+      a_s[row][f] = a;
+      H = fmaf(H, a, b_s[row][f]);
+      A *= a;
+    }
+    sub_a[s][f] = A;
+    sub_h[s][f] = H;
+  }
+  __syncthreads();
+
+  // ---- the tile's pair, its carry-in from the tile before (spinning on
+  // that tile's word), its own state published for the tile after
+  if (tid < kF) {
+    float At = 1.0f, Ht = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kSub; ++q) {
+      Ht = fmaf(sub_a[q][f], Ht, sub_h[q][f]);
+      At *= sub_a[q][f];
+    }
+    const size_t idx = (size_t)chain * tiles + tile;
+    float carry = 0.0f;
+    if (tile > 0) {
+      const unsigned long long* prev = sc.state + (idx - 1) * kF + f;
+      unsigned long long word;
+      while (((word = load_acquire(prev)) >> 32) == 0) __nanosleep(20);
+      carry = __uint_as_float((unsigned)word);
+    }
+    carry_s[f] = carry;
+    store_release(sc.state + idx * kF + f,
+                  (1ull << 32) | __float_as_uint(fmaf(At, carry, Ht)));
+  }
+  __syncthreads();
+
+  // ---- pass 2: the recurrence again from the carry-in, h written once
+  float hv = carry_s[f];
+  for (int q = 0; q < s; ++q) hv = fmaf(sub_a[q][f], hv, sub_h[q][f]);
+  const bool f_ok = f0 + f < R;
+  float* out = h_out + base + f0 + f;
+#pragma unroll
+  for (int i = 0; i < kL; ++i) {
+    const int row = s * kL + i;
+    hv = fmaf(hv, a_s[row][f], b_s[row][f]);
+    const int t = t0 + row;
+    if (f_ok && t < S) out[(size_t)t * R] = hv;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
-             float* __restrict__ h_out, int S, int R) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  if (r >= R) return;  // no barrier below: each thread owns its feature
-  const size_t base = (size_t)blockIdx.y * S * R + r;
-  const float* la = log_a + base;
-  const float* bb = b + base;
-  float* out = h_out + base;
-
-  float a_cur[kAhead], b_cur[kAhead], a_next[kAhead], b_next[kAhead];
-  load_chunk(la, bb, 0, S, R, a_cur, b_cur);
-  float h = 0.0f;
-  for (int t0 = 0; t0 < S; t0 += kAhead) {
-    const bool more = t0 + kAhead < S;
-    if (more) load_chunk(la, bb, t0 + kAhead, S, R, a_next, b_next);
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      h = h * a_cur[i] + b_cur[i];
-      if (t0 + i < S) out[(size_t)(t0 + i) * R] = h;
-    }
-    if (more) {
-#pragma unroll
-      for (int i = 0; i < kAhead; ++i) {
-        a_cur[i] = a_next[i];
-        b_cur[i] = b_next[i];
-      }
-    }
-  }
+// byte offsets of the scratch's parts: ticket, states, end
+void scratch_layout(int B, int S, int R, size_t off[3]) {
+  const size_t n = (size_t)B * ((R + kF - 1) / kF) * ((S + kT - 1) / kT);
+  off[0] = 0;
+  off[1] = 16;
+  off[2] = off[1] + n * kF * sizeof(unsigned long long);
 }
 
 }  // namespace
 
-// log_a, b, h: (B, S, R) float32, contiguous, on one device.  Launches on
-// `stream` and returns the cudaError_t of the launch.
+// Bytes of scratch rglru_scan_launch needs at (B, S, R).
+extern "C" long long rglru_scan_scratch_bytes(int B, int S, int R) {
+  size_t off[3];
+  scratch_layout(B, S, R, off);
+  return (long long)off[2];
+}
+
+// log_a, b, h: (B, S, R) float32, contiguous, on one device; scratch:
+// rglru_scan_scratch_bytes(B, S, R) bytes, 16-byte aligned.  Zeroes the
+// scratch (the ticket and every tile's state word) and launches the
+// kernel, both on `stream`; returns the cudaError_t of the two.
 extern "C" int rglru_scan_launch(const float* log_a, const float* b,
-                                 float* h, int B, int S, int R,
-                                 void* stream) {
-  if (B <= 0 || S <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
-  if (B > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((R + kThreads - 1) / kThreads, B);
-  rglru_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(log_a, b, h, S, R);
+                                 float* h, void* scratch, int B, int S,
+                                 int R, void* stream) {
+  if (B <= 0 || S <= 0 || R <= 0 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * ((R + kF - 1) / kF) *
+                           ((S + kT - 1) / kT);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  size_t off[3];
+  scratch_layout(B, S, R, off);
+  char* base = static_cast<char*>(scratch);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(base, 0, off[2], st);
+  if (err != cudaSuccess) return (int)err;
+  Scratch sc{reinterpret_cast<int*>(base + off[0]),
+             reinterpret_cast<unsigned long long*>(base + off[1])};
+  const bool aligned = R % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(log_a) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  if (aligned)
+    rglru_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(log_a, b, h, sc,
+                                                              B, S, R);
+  else
+    rglru_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(log_a, b, h,
+                                                               sc, B, S, R);
   return (int)cudaGetLastError();
 }

@@ -13,9 +13,13 @@ experiments run in one launch:
   as the reference's custom_vjp backward is plain jnp.
 * ``gp_ei`` — batched expected improvement: per lane, the cross
   covariance, the forward substitution for the predictive variance and
-  the EI closed form, one thread per candidate (``csrc/gp_ei.cu``); any
-  bucket, its substituted columns in shared memory up to b = 1024 and in
-  a global scratch buffer past that.
+  the EI closed form (``csrc/gp_ei.cu``).  One block of 8 warps per tile
+  of ``EI_TILE`` candidates, which it solves together as the columns of
+  one blocked triangular solve: 32-row panels of L, each panel's update
+  from the panels above split over the warps (L staged with cp.async),
+  then its 32 x 32 diagonal block solved one candidate a warp.  Any
+  bucket: the tile's V columns sit in shared memory through b = 5984
+  (d = 3) and in a global scratch buffer past that.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors — there is no fall-back: on a CUDA
@@ -26,15 +30,27 @@ main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._launch import (I as _I, P as _P, LaunchCounter,
-                                         _check, _fn, _raise_on)
+                                         _check, _fn, _raise_on,
+                                         current_stream, on_device)
 
 gp_nll_launches = LaunchCounter()
 gp_ei_launches = LaunchCounter()
+
+#: candidates a ``gp_ei`` block solves together, and the rows of L a
+#: panel of its blocked forward substitution (``csrc/gp_ei.cu`` kTC,
+#: kPanel; the CPU tests emulate that order with these)
+EI_TILE = 8
+EI_PANEL = 32
+#: keep ``gp_ei``'s V tile in global scratch at every bucket, as it is
+#: past what shared memory holds: ``chip_smoke.py`` sets it to hold that
+#: path against the shared-memory one
+EI_FORCE_SCRATCH = False
 
 
 # ------------------------------------------------------------------ NLL
@@ -136,6 +152,12 @@ def gp_nll(log_ls, log_amp, log_noise, x, y, mask):
 
 
 # ------------------------------------------------------------------- EI
+@functools.lru_cache(maxsize=256)
+def _ei_scratch_floats(k, b, d, m, force):
+    return _fn("gp_ei", "gp_ei_scratch_floats", [_I] * 5,
+               ctypes.c_longlong)(k, b, d, m, force)
+
+
 def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand, best,
           xi: float = 0.01):
     """Fused batched EI over per-lane posteriors; shapes as in
@@ -155,22 +177,21 @@ def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand, best,
                            ("y_std", y_std, (k,)), ("cand", cand, (k, m, d)),
                            ("best", best, (k,))):
         _check(name, t, shape, dev)
-    ei = torch.empty((k, m), dtype=torch.float32, device=dev)
     fn = _fn("gp_ei", "gp_ei_launch",
-             [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P])
-    n_scratch = _fn("gp_ei", "gp_ei_scratch_floats", [_I] * 3,
-                    ctypes.c_longlong)(k, b, m)
-    # past what a block's shared memory holds, v spills to global scratch
-    scratch = (torch.empty((n_scratch,), dtype=torch.float32, device=dev)
-               if n_scratch else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+             [_P] * 12 + [_I] * 4 + [ctypes.c_float, _I, _P])
+    force = int(bool(EI_FORCE_SCRATCH))
+    # one allocation: ei, then (16-byte aligned) the scratch, the diagonal
+    # blocks' inverses and V past what shared memory holds
+    n_ei = (k * m + 3) // 4 * 4
+    buf = torch.empty((n_ei + _ei_scratch_floats(k, b, d, m, force),),
+                      dtype=torch.float32, device=dev)
+    ei = buf[:k * m].view(k, m)
+    with on_device(dev):
         err = fn(log_ls.data_ptr(), log_amp.data_ptr(), x.data_ptr(),
                  mask.data_ptr(), chol.data_ptr(), alpha.data_ptr(),
                  y_mean.data_ptr(), y_std.data_ptr(), cand.data_ptr(),
-                 best.data_ptr(), ei.data_ptr(),
-                 scratch.data_ptr() if scratch is not None else None,
-                 k, b, d, m, float(xi), stream)
+                 best.data_ptr(), ei.data_ptr(), buf[n_ei:].data_ptr(),
+                 k, b, d, m, float(xi), force, current_stream(dev))
     _raise_on(err, "gp_ei")
     gp_ei_launches.add()
     return ei

@@ -167,6 +167,12 @@ def gp_ei_ref(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std,
     mu = (kq @ alpha.unsqueeze(-1)).squeeze(-1)                  # (k,m)
     v = torch.linalg.solve_triangular(chol, kq.transpose(-1, -2),
                                       upper=False)               # (k,b,m)
+    return ei_closed_form(mu, v, log_amp, y_mean, y_std, best, xi)
+
+
+def ei_closed_form(mu, v, log_amp, y_mean, y_std, best, xi=0.01):
+    """EI in raw y units from the posterior mean's kq·α (k,m) and the
+    substituted V = L⁻¹kqᵀ (k,b,m): the tail of ``gp_ei_ref``."""
     amp2 = torch.exp(2.0 * log_amp)[:, None]
     var = torch.clamp(amp2 - (v * v).sum(-2), min=1e-12)
     mu = mu * y_std[:, None] + y_mean[:, None]

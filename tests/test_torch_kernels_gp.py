@@ -9,7 +9,10 @@ run only on the card: their test skips here and runs under
 ``python3 chip_smoke.py`` / pytest on a machine with one.  The blocked
 ``gp_nll`` kernel's order of operations (32-column panels, the diagonal
 block, the panel rows, the trailing update) is emulated in plain torch
-and held against the Pallas kernel in interpret mode and the JAX oracle.
+and held against the Pallas kernel in interpret mode and the JAX oracle,
+and so is the ``gp_ei`` kernel's (8-candidate tiles, 32-row panels, each
+panel's update split over the lanes and summed in a reduce-scatter, the
+diagonal blocks' inverses).
 """
 import jax
 import jax.numpy as jnp
@@ -194,7 +197,8 @@ def test_kernel_wrappers_reject_bad_inputs():
 
 def test_cuda_kernels_match_oracles():
     """The hand-written CUDA kernels against their plain versions on the
-    card (b = 16 and 64, ragged masks): rtol 1e-4 of the max-norm."""
+    card (b = 16 and 64, ragged masks): rtol 1e-4 of the max-norm; gp_ei
+    also at b = 37 and 100 (1e-3 past b = 64)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda")
@@ -211,6 +215,13 @@ def test_cuda_kernels_match_oracles():
         ei, ei_ref = kgp.gp_ei(*args), ref.gp_ei_ref(*args)
         assert float((ei - ei_ref).abs().max()) <= \
             1e-4 * float(ei_ref.abs().max())
+    # gp_ei's panel edges: a 5-row last panel with rows not 16-byte
+    # aligned, a 4-row one, 13 candidates (a last tile of 5), a zero lane
+    for b in (37, 100):
+        args = [t.to(dev) for t in _t(*_ei_case(b, seed=3))]
+        ei, ei_ref = kgp.gp_ei(*args), ref.gp_ei_ref(*args)
+        assert float((ei - ei_ref).abs().max()) <= \
+            (1e-4 if b <= 64 else 1e-3) * float(ei_ref.abs().max())
 
 
 # ------------------------------------------- the blocked kernel's arithmetic
@@ -288,3 +299,126 @@ def test_blocked_cholesky_matches_reference_at_a_larger_bucket(b, nb):
     want_z = np.stack([np.asarray(jax.scipy.linalg.solve_triangular(
         want_L[i], y[i] * mask[i], lower=True)) for i in range(len(y))])
     assert _rel(z.numpy(), want_z) <= 1e-3
+
+
+# ------------------------------------------------ the gp_ei kernel's order
+def _diag_inverses(L, b, nb):
+    """Each nb x nb diagonal block of L inverted as the kernel's first
+    kernel does it: column j by substitution against e_j, dividing by the
+    pivot; rows past b are identity.  L (k, bp, bp) -> (k, bp/nb, nb, nb)."""
+    k, bp, _ = L.shape
+    out = torch.zeros(k, bp // nb, nb, nb)
+    for p in range(bp // nb):
+        r0 = p * nb
+        A = L[:, r0:r0 + nb, r0:r0 + nb].clone()
+        pad = torch.arange(r0, r0 + nb) >= b
+        A[:, pad, :] = 0.0
+        A[:, pad, pad] = 1.0
+        s = torch.eye(nb).expand(k, nb, nb).clone()   # s[:, i, j]: column j
+        for t in range(nb):
+            s[:, t] = s[:, t] / A[:, t, t, None]
+            s[:, t + 1:] -= A[:, t + 1:, t, None] * s[:, t, None, :]
+        out[:, p] = s
+    return out
+
+
+def _panel_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand,
+              best, xi=0.01, tc=kgp.EI_TILE, nb=kgp.EI_PANEL):
+    """Plain-torch emulation of the ``gp_ei`` kernel's order
+    (``csrc/gp_ei.cu``): candidates in tiles of ``tc`` (the last tile
+    padded with the last candidate, dropped at the end), kq from the
+    scaled points, V = L⁻¹kqᵀ in panels of ``nb`` rows.  A panel's update
+    L[p, :p]·V[:p] is split over the inner dimension as the warps' lanes
+    split it, k = lane mod 32, each lane summing its k in order, and the
+    32 partial sums meet in the reduce-scatter's tree (lanes paired on
+    bit 4, then 3, 2, 1, 0); then V_p = L_pp⁻¹·(kq_p − update), with the
+    diagonal block's inverse from ``_diag_inverses`` and four partial sums
+    over j mod 4.  The kernel inverts the diagonal blocks instead of
+    substituting row by row: that chain of b dependent steps cost a third
+    of it.  Returns ei (k, m) in float32."""
+    k, b, d = x.shape
+    m = cand.shape[1]
+    mp = -(-m // tc) * tc
+    cand = torch.cat([cand, cand[:, -1:].expand(k, mp - m, d)], 1)
+    ls = torch.exp(log_ls)[:, None, :]
+    cs, xs = cand / ls, x / ls
+    cc = torch.zeros(k, mp)
+    xx = torch.zeros(k, b)
+    cx = torch.zeros(k, mp, b)
+    for u in range(d):
+        cc = cc + cs[..., u] * cs[..., u]
+        xx = xx + xs[..., u] * xs[..., u]
+        cx = cx + cs[:, :, None, u] * xs[:, None, :, u]
+    sq = torch.clamp(cc[:, :, None] - 2.0 * cx + xx[:, None, :], min=0.0)
+    r = torch.sqrt(sq + 1e-12)
+    s5r = 5.0 ** 0.5 * r
+    amp2 = torch.exp(2.0 * log_amp)
+    kq = (amp2[:, None, None] * (1.0 + s5r + (5.0 / 3.0) * r * r)
+          * torch.exp(-s5r) * mask[:, None, :])           # (k, mp, b)
+    mu = (kq * alpha[:, None, :]).sum(-1)
+    bp = -(-b // nb) * nb
+    L = torch.zeros(k, bp, bp)
+    L[:, :b, :b] = chol
+    linv = _diag_inverses(L, b, nb)
+    V = torch.zeros(k, bp, mp)
+    V[:, :b] = kq.transpose(1, 2)                         # kq, then V
+    ss = torch.zeros(k, mp)
+    for p in range(bp // nb):
+        rows = slice(p * nb, (p + 1) * nb)
+        part = torch.zeros(k, nb, nb, mp)                 # (row, lane, cand)
+        for q in range(p):
+            cols = slice(q * nb, (q + 1) * nb)
+            part = part + L[:, rows, cols, None] * V[:, None, cols, :]
+        for h in (16, 8, 4, 2, 1):
+            part = part[:, :, :h] + part[:, :, h:2 * h]
+        rr = V[:, rows] - part[:, :, 0]
+        vp = [torch.zeros(k, nb, mp) for _ in range(4)]
+        for j in range(nb):
+            vp[j % 4] = vp[j % 4] + linv[:, p, :, j, None] * rr[:, None, j]
+        V[:, rows] = (vp[0] + vp[1]) + (vp[2] + vp[3])
+        ss = ss + (V[:, rows] ** 2).sum(1)
+    var = torch.clamp(amp2[:, None] - ss, min=1e-12)[:, :m]
+    mean = mu[:, :m] * y_std[:, None] + y_mean[:, None]
+    sd = torch.sqrt(var) * y_std[:, None]
+    imp = mean - best[:, None] - xi
+    z = imp / sd
+    ncdf = 0.5 * (1.0 + torch.erf(z / 2.0 ** 0.5))
+    npdf = torch.exp(-0.5 * z * z) / (2.0 * np.pi) ** 0.5
+    return imp * ncdf + sd * npdf
+
+
+def _ei_case(b, k=4, m=13, seed=0):
+    """k lanes (full, half, 2 points, and an all-zero-mask lane) with
+    their posterior factors and m candidates (not a multiple of the tile):
+    the arguments of ``gp_ei`` as numpy float32."""
+    ll, la, ln, x, y, mask = _gp_case(k=k, b=b, seed=seed)
+    mask[k - 1] = 0.0
+    chol, alpha, y_mean, y_std, _, best = _posterior_factors(ll, la, ln, x, y,
+                                                             mask, seed + 1)
+    cand = np.random.default_rng(seed + 2).random((k, m, x.shape[-1]))
+    return (ll, la, x, mask, chol, alpha, y_mean, y_std,
+            cand.astype(np.float32), best)
+
+
+@pytest.mark.parametrize("b", [16, 64])
+def test_gp_ei_panel_order_matches_reference_and_pallas(b):
+    """The kernel's order against the JAX oracle and the Pallas kernel in
+    interpret mode on ragged lanes and an all-zero-mask lane: b = 16 is a
+    panel that b does not fill, b = 64 two panels.  Held to chip_smoke's
+    phase-2 limit for b <= 64: 1e-4 of the max-norm.  The seed gives the
+    full lane EI of order 1, so the second panel's update shows in the
+    max-norm (a lane whose EI is all ~0 would hide it)."""
+    args = _ei_case(b, seed=3)
+    got = _panel_ei(*_t(*args)).numpy()
+    assert np.isfinite(got).all()
+    assert _rel(got, np.asarray(jref.gp_ei_ref(*args))) <= 1e-4
+    pal = jgp.gp_ei(*(jnp.asarray(a) for a in args), interpret=True)
+    assert _rel(got, np.asarray(pal)) <= 1e-4
+
+
+def test_gp_ei_panel_order_at_a_larger_bucket():
+    """Eight panels of updates, b = 256 and 96 candidates, against the JAX
+    oracle: phase 2's limit for b > 64, 1e-3 of the max-norm."""
+    args = _ei_case(256, k=3, m=96, seed=7)
+    got = _panel_ei(*_t(*args)).numpy()
+    assert _rel(got, np.asarray(jref.gp_ei_ref(*args))) <= 1e-3

@@ -12,7 +12,9 @@ tensor-core kernel computes in its own order (64-key tiles, bf16 Q.K^T
 with float32 sums, online softmax, P split in two bf16 parts for P.V) is
 emulated in plain torch and held against the JAX oracle within the
 limit the card holds the kernel to; with a single bf16 P it must not
-stay within it.
+stay within it.  The RG-LRU kernel's chunked order (64-step tiles,
+16-step sub-chunks, the carry passed from tile to tile) is emulated too
+and held against the JAX oracle and the Pallas kernel.
 
 Tolerances: float32 results 2e-5 absolute on O(1) outputs (both sides
 compute in float32, in other orders); bfloat16 results 2e-2 absolute —
@@ -119,6 +121,8 @@ def _scan_inputs(B, S, R, seed=0):
 
 
 SCAN_SHAPES = [(1, 64, 32), (2, 100, 96), (1, 257, 520)]
+#: S past a whole number of the kernel's time tiles, and S within one
+SCAN_TILE_EDGES = [(2, 150, 40), (1, 40, 24)]
 
 
 @pytest.mark.parametrize("B,S,R", SCAN_SHAPES)
@@ -195,7 +199,9 @@ def test_cuda_kernels_match_plain_versions():
             err = float((got.float() - want.float()).abs().max())
             assert err <= DTYPES[dtype][3], (name, dtype, err)
     assert kfa.flash_attention_launches.count == n0 + 2 * len(FLASH_CASES)
-    for B, S, R in SCAN_SHAPES:
+    for B, S, R in SCAN_SHAPES + SCAN_TILE_EDGES + [(2, 1, 1000),
+                                                    (3, 65, 1000),
+                                                    (2, 129, 999)]:
         la, b = (torch.from_numpy(a).to(dev) for a in _scan_inputs(B, S, R))
         got = krg.rglru_scan(la, b)
         want = ref.rglru_scan_ref(la, b)
@@ -297,3 +303,60 @@ def test_single_bf16_probabilities_exceed_the_bf16_limit(name):
     rms an element) does not stay within the same limit."""
     tx, opts, ref32 = _emulated_case(name)
     assert _excess(_tensor_core_flash(*tx, *opts, split=False), ref32) > 1.0
+
+
+# ------------------------------------------- the chunked scan's arithmetic
+def _chunked_scan(log_a, b, tile=krg.TIME_TILE, sub=krg.SUB_CHUNK):
+    """Plain-torch emulation of the ``rglru_scan`` kernel's order
+    (``csrc/rglru_scan.cu``): time in tiles of ``tile`` steps (padded with
+    a = 1, b = 0), each in sub-chunks of ``sub`` steps scanned from 0 to a
+    pair (A = prod a, H = the end state), the pairs folded into the
+    tile's; a tile's carry-in is the state after the tile before,
+    A·carry + H, and then each sub-chunk runs again from its carry-in (the
+    tile's carry through the sub-chunks before it)."""
+    B, S, R = log_a.shape
+    n = -(-S // tile)
+    pad = n * tile - S
+    a = torch.exp(torch.nn.functional.pad(log_a, (0, 0, 0, pad)))
+    bb = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    nsub = tile // sub
+    sub_a = torch.ones(n, nsub, B, R)
+    sub_h = torch.zeros(n, nsub, B, R)
+    for i in range(n):
+        for q in range(nsub):
+            for t in range(i * tile + q * sub, i * tile + (q + 1) * sub):
+                sub_h[i, q] = sub_h[i, q] * a[:, t] + bb[:, t]
+                sub_a[i, q] = sub_a[i, q] * a[:, t]
+    carry = torch.zeros(n, B, R)
+    for i in range(n):
+        tile_a, tile_h = torch.ones(B, R), torch.zeros(B, R)
+        for q in range(nsub):
+            tile_h = sub_a[i, q] * tile_h + sub_h[i, q]
+            tile_a = tile_a * sub_a[i, q]
+        if i + 1 < n:
+            carry[i + 1] = tile_a * carry[i] + tile_h
+    out = torch.empty(B, n * tile, R)
+    for i in range(n):
+        for q in range(nsub):
+            h = carry[i]
+            for qq in range(q):
+                h = sub_a[i, qq] * h + sub_h[i, qq]
+            for t in range(i * tile + q * sub, i * tile + (q + 1) * sub):
+                h = h * a[:, t] + bb[:, t]
+                out[:, t] = h
+    return out[:, :S]
+
+
+@pytest.mark.parametrize("B,S,R", SCAN_SHAPES + SCAN_TILE_EDGES)
+def test_chunked_scan_order_matches_reference(B, S, R):
+    """The kernel's chunked order against the sequential JAX oracle and
+    the Pallas kernel in interpret mode, with the tolerance of
+    ``test_rglru_oracle_matches_jax`` (1e-5): S a whole number of tiles,
+    past one, and within one."""
+    la, b = _scan_inputs(B, S, R, seed=S)
+    got = _chunked_scan(torch.from_numpy(la), torch.from_numpy(b)).numpy()
+    seq = np.asarray(jref.rglru_scan_ref(jnp.asarray(la), jnp.asarray(b)))
+    np.testing.assert_allclose(got, seq, rtol=1e-5, atol=1e-5)
+    pal = np.asarray(pallas_rglru(jnp.asarray(la), jnp.asarray(b), bt=32,
+                                  bf=64, interpret=True))
+    np.testing.assert_allclose(got, pal, rtol=1e-5, atol=1e-5)
