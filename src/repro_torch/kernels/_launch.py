@@ -85,14 +85,10 @@ def on_device(dev: torch.device):
 
 def current_stream(dev: torch.device) -> int:
     """The current CUDA stream of ``dev`` as the int a C entry point
-    takes (``torch._C._cuda_getCurrentRawStream`` where the build has it,
-    as Triton's launcher reads it: ``torch.cuda.current_stream`` builds a
-    Python object a call)."""
+    takes, read as Triton's launcher reads it (``torch.cuda.current_stream``
+    builds a Python object a call)."""
     index = torch.cuda.current_device() if dev.index is None else dev.index
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(index)
-    return torch.cuda.current_stream(index).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _raise_on(err: int, what: str) -> None:

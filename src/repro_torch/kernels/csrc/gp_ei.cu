@@ -57,15 +57,21 @@
 //   block of the covariance, not by the whole.  sum V^2 accumulates as the
 //   panels go.  Two block barriers a panel.
 // - V's tile is b x kTC floats: in shared memory through b = 5984 at d = 3
-//   (64 KB at b = 2048).  Past that, or when the caller forces it, the
-//   same code keeps V in the global scratch (gp_ei_scratch_floats), one
-//   slice a block.
+//   (64 KB at b = 2048).  Past that the same code keeps V in the global
+//   scratch (gp_ei_scratch_floats), one slice a block.
+// - Buckets of one panel (b <= 32, the smallest buckets): there is no
+//   update to split, and a block of 8 warps a tile with its 34 KB ring,
+//   and the inverses' launch before it, cost more than the solve itself.
+//   So small_kernel solves them in one launch, one thread a candidate,
+//   substituting row by row against L in shared memory: a chain of at
+//   most 32 rows, kq and V in registers.
 // - Ragged edges: rows and columns past b are zero-filled by cp.async, and
 //   the inverse treats rows past b as identity, so they solve to 0; the
 //   last tile's missing candidates repeat the last one and are not
 //   written; a bucket whose rows are not 16-byte aligned (b not a multiple
 //   of 4) stages L with 4-byte copies.
-// One wrapper call launches two kernels: the diagonal inverses, then EI.
+// One wrapper call launches one kernel (small_kernel) for b <= 32, and two
+// past it: the diagonal inverses, then EI.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -444,9 +450,105 @@ ei_kernel(const float* __restrict__ log_ls, const float* __restrict__ log_amp,
   }
 }
 
-bool v_in_global(int b, int d, int force_scratch) {
-  return force_scratch || smem_bytes(b, d, false) > kMaxSmem;
+constexpr int kSmallThreads = 128;  // candidates a small_kernel block
+// small_kernel's dynamic shared memory: ls (d) and the scaled points (b d)
+size_t small_smem_bytes(int b, int d) {
+  return sizeof(float) * (size_t)d * (b + 1);
 }
+// One panel: b <= 32 and the scaled points fit the default 48 KB.
+bool one_panel(int b, int d) {
+  return b <= kPanel && small_smem_bytes(b, d) <= 48 * 1024;
+}
+
+// Buckets of one panel: thread t of block (x, y) is candidate
+// kSmallThreads x + t of lane y.  kq into registers, mu, then
+// V = L^-1 kq row by row (division by the pivot, as substitution does).
+__global__ void __launch_bounds__(kSmallThreads)
+small_kernel(const float* __restrict__ log_ls,
+             const float* __restrict__ log_amp, const float* __restrict__ x,
+             const float* __restrict__ mask, const float* __restrict__ chol,
+             const float* __restrict__ alpha,
+             const float* __restrict__ y_mean,
+             const float* __restrict__ y_std, const float* __restrict__ cand,
+             const float* __restrict__ best, float* __restrict__ ei, int b,
+             int d, int m, float xi) {
+  __shared__ float Ls[kPanel][kDiagStride];
+  __shared__ float xx[kPanel], ms[kPanel], as[kPanel];
+  extern __shared__ float dyn[];
+  float* ls_s = dyn;       // (d,) exp(log_ls)
+  float* xs = dyn + d;     // (b, d) x / ls
+  const int lane_k = blockIdx.y, tid = threadIdx.x;
+  const float* Ll = chol + (size_t)lane_k * b * b;
+  for (int u = tid; u < d; u += kSmallThreads)
+    ls_s[u] = expf(log_ls[(size_t)lane_k * d + u]);
+  for (int e = tid; e < b * b; e += kSmallThreads)
+    Ls[e / b][e % b] = __ldg(Ll + e);
+  if (tid < b) {
+    ms[tid] = mask[(size_t)lane_k * b + tid];
+    as[tid] = alpha[(size_t)lane_k * b + tid];
+  }
+  __syncthreads();
+  for (int e = tid; e < b * d; e += kSmallThreads)
+    xs[e] = __ldg(x + (size_t)lane_k * b * d + e) / ls_s[e % d];
+  __syncthreads();
+  if (tid < b) {
+    float s = 0.0f;
+    for (int u = 0; u < d; ++u) s += xs[tid * d + u] * xs[tid * d + u];
+    xx[tid] = s;
+  }
+  __syncthreads();
+  const int ci = blockIdx.x * kSmallThreads + tid;
+  if (ci >= m) return;  // no barrier below
+
+  // cx_j = cand/ls . x_j/ls, each candidate coordinate scaled once
+  const float* cl = cand + ((size_t)lane_k * m + ci) * d;
+  float v[kPanel], cc = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) v[j] = 0.0f;
+  for (int u = 0; u < d; ++u) {
+    const float c = __ldg(cl + u) / ls_s[u];
+    cc += c * c;
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j)
+      if (j < b) v[j] = fmaf(c, xs[j * d + u], v[j]);
+  }
+  const float amp2 = expf(2.0f * log_amp[lane_k]);
+  const float sqrt5 = sqrtf(5.0f);
+  float mu = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPanel; ++j) {
+    if (j < b) {
+      const float sq = fmaxf(cc - 2.0f * v[j] + xx[j], 0.0f);
+      const float r = sqrtf(sq + 1e-12f);
+      const float s5r = sqrt5 * r;
+      v[j] = amp2 * (1.0f + s5r + (5.0f / 3.0f) * r * r) * expf(-s5r) *
+             ms[j];
+      mu = fmaf(v[j], as[j], mu);
+    }
+  }
+  float ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kPanel; ++i) {
+    if (i < b) {
+      float t = v[i];
+#pragma unroll
+      for (int j = 0; j < i; ++j) t = fmaf(-Ls[i][j], v[j], t);
+      v[i] = t / Ls[i][i];
+      ss = fmaf(v[i], v[i], ss);
+    }
+  }
+  const float var = fmaxf(amp2 - ss, 1e-12f);
+  const float ystd = y_std[lane_k];
+  const float mean = mu * ystd + y_mean[lane_k];
+  const float sd = sqrtf(var) * ystd;
+  const float imp = mean - best[lane_k] - xi;
+  const float z = imp / sd;
+  const float ncdf = 0.5f * (1.0f + erff(z / sqrtf(2.0f)));
+  const float npdf = expf(-0.5f * z * z) / sqrtf(2.0f * 3.14159265358979f);
+  ei[(size_t)lane_k * m + ci] = imp * ncdf + sd * npdf;
+}
+
+bool v_in_global(int b, int d) { return smem_bytes(b, d, false) > kMaxSmem; }
 
 template <bool kAligned, bool kVGlobal>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
@@ -469,14 +571,14 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
 
 }  // namespace
 
-// Floats of global scratch gp_ei_launch needs at these shapes: the
-// diagonal blocks' inverses, k * (padded b) * 32, and past what a block's
-// shared memory holds (or with force_scratch) every block's V tile,
-// k * ceil(m / kTC) * kTC * (padded b + 4).
-extern "C" long long gp_ei_scratch_floats(int k, int b, int d, int m,
-                                          int force_scratch) {
+// Floats of global scratch gp_ei_launch needs at these shapes: none for
+// a bucket of one panel; else the diagonal blocks' inverses,
+// k * (padded b) * 32, and past what a block's shared memory holds every
+// block's V tile, k * ceil(m / kTC) * kTC * (padded b + 4).
+extern "C" long long gp_ei_scratch_floats(int k, int b, int d, int m) {
+  if (one_panel(b, d)) return 0;
   long long n = (long long)inv_floats(k, b);
-  if (v_in_global(b, d, force_scratch))
+  if (v_in_global(b, d))
     n += (long long)k * ((m + kTC - 1) / kTC) * kTC * v_stride(b);
   return n;
 }
@@ -484,24 +586,32 @@ extern "C" long long gp_ei_scratch_floats(int k, int b, int d, int m,
 // Shapes (all float32, contiguous, on one device): log_ls (k,d),
 // log_amp (k,), x (k,b,d), mask (k,b), chol (k,b,b), alpha (k,b),
 // y_mean (k,), y_std (k,), cand (k,m,d), best (k,) -> ei (k,m).
-// scratch: gp_ei_scratch_floats(k, b, d, m, force_scratch) floats, 16-byte
-// aligned; force_scratch keeps V in it at any b.  Launches the two kernels
-// on `stream` and returns the first cudaError_t that is not success.
+// scratch: gp_ei_scratch_floats(k, b, d, m) floats, 16-byte aligned (may
+// be null when that is 0).  Launches one kernel (b <= 32) or two on
+// `stream` and returns the first cudaError_t that is not success.
 extern "C" int gp_ei_launch(const float* log_ls, const float* log_amp,
                             const float* x, const float* mask,
                             const float* chol, const float* alpha,
                             const float* y_mean, const float* y_std,
                             const float* cand, const float* best, float* ei,
                             float* scratch, int k, int b, int d, int m,
-                            float xi, int force_scratch, void* stream) {
-  if (k <= 0 || b <= 0 || d <= 0 || m <= 0 || k > 65535 || scratch == nullptr)
+                            float xi, void* stream) {
+  if (k <= 0 || b <= 0 || d <= 0 || m <= 0 || k > 65535)
     return (int)cudaErrorInvalidValue;
-  const bool global = v_in_global(b, d, force_scratch);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (one_panel(b, d)) {
+    small_kernel<<<dim3((m + kSmallThreads - 1) / kSmallThreads, k),
+                   kSmallThreads, small_smem_bytes(b, d), st>>>(
+        log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand, best, ei,
+        b, d, m, xi);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const bool global = v_in_global(b, d);
   const size_t smem = smem_bytes(b, d, global);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // d too large
   const bool aligned =
       b % 4 == 0 && reinterpret_cast<uintptr_t>(chol) % 16 == 0;
-  cudaStream_t st = (cudaStream_t)stream;
   float* linv = scratch;
   float* vscratch = global ? scratch + inv_floats(k, b) : nullptr;
   inv_kernel<<<dim3(padded_rows(b) / kPanel, k), 32, 0, st>>>(chol, linv, b);

@@ -19,7 +19,9 @@ experiments run in one launch:
   from the panels above split over the warps (L staged with cp.async),
   then its 32 x 32 diagonal block solved one candidate a warp.  Any
   bucket: the tile's V columns sit in shared memory through b = 5984
-  (d = 3) and in a global scratch buffer past that.
+  (d = 3) and in a global scratch buffer past that.  A bucket of one
+  panel (b <= ``EI_PANEL``) is solved by one launch of a small kernel
+  instead, one thread a candidate substituting row by row.
 
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors — there is no fall-back: on a CUDA
@@ -47,10 +49,6 @@ gp_ei_launches = LaunchCounter()
 #: kPanel; the CPU tests emulate that order with these)
 EI_TILE = 8
 EI_PANEL = 32
-#: keep ``gp_ei``'s V tile in global scratch at every bucket, as it is
-#: past what shared memory holds: ``chip_smoke.py`` sets it to hold that
-#: path against the shared-memory one
-EI_FORCE_SCRATCH = False
 
 
 # ------------------------------------------------------------------ NLL
@@ -153,9 +151,9 @@ def gp_nll(log_ls, log_amp, log_noise, x, y, mask):
 
 # ------------------------------------------------------------------- EI
 @functools.lru_cache(maxsize=256)
-def _ei_scratch_floats(k, b, d, m, force):
-    return _fn("gp_ei", "gp_ei_scratch_floats", [_I] * 5,
-               ctypes.c_longlong)(k, b, d, m, force)
+def _ei_scratch_floats(k, b, d, m):
+    return _fn("gp_ei", "gp_ei_scratch_floats", [_I] * 4,
+               ctypes.c_longlong)(k, b, d, m)
 
 
 def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand, best,
@@ -178,20 +176,17 @@ def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand, best,
                            ("best", best, (k,))):
         _check(name, t, shape, dev)
     fn = _fn("gp_ei", "gp_ei_launch",
-             [_P] * 12 + [_I] * 4 + [ctypes.c_float, _I, _P])
-    force = int(bool(EI_FORCE_SCRATCH))
-    # one allocation: ei, then (16-byte aligned) the scratch, the diagonal
-    # blocks' inverses and V past what shared memory holds
-    n_ei = (k * m + 3) // 4 * 4
-    buf = torch.empty((n_ei + _ei_scratch_floats(k, b, d, m, force),),
-                      dtype=torch.float32, device=dev)
-    ei = buf[:k * m].view(k, m)
+             [_P] * 12 + [_I] * 4 + [ctypes.c_float, _P])
+    ei = torch.empty((k, m), dtype=torch.float32, device=dev)
+    n = _ei_scratch_floats(k, b, d, m)
+    scratch = torch.empty((n,), dtype=torch.float32, device=dev) if n else None
     with on_device(dev):
         err = fn(log_ls.data_ptr(), log_amp.data_ptr(), x.data_ptr(),
                  mask.data_ptr(), chol.data_ptr(), alpha.data_ptr(),
                  y_mean.data_ptr(), y_std.data_ptr(), cand.data_ptr(),
-                 best.data_ptr(), ei.data_ptr(), buf[n_ei:].data_ptr(),
-                 k, b, d, m, float(xi), force, current_stream(dev))
+                 best.data_ptr(), ei.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), k, b, d, m,
+                 float(xi), current_stream(dev))
     _raise_on(err, "gp_ei")
     gp_ei_launches.add()
     return ei
