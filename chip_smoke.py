@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: the GP suggestion
-service, the LM server and the error-feedback int8 all-reduce.
+service, the paper's §4 HPO loop, the LM server and the error-feedback
+int8 all-reduce.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -39,6 +40,23 @@ script exits non-zero and prints no result):
    objective (held for ``TRIAL_SECONDS`` as a trial would be) and
    observe.  The kernels' launch counters are zeroed just
    before and read just after.
+3b. the paper's §4 loop — first one batch of the CNN (``models/cnn.py``)
+   on the card against the same batch on the CPU from the same
+   parameters (logits, loss and every gradient within 1e-4 by relative
+   norm) and ``train_cnn``'s ms a step; then ``Orchestrator.run`` with a
+   cluster pool ``gpu`` of 30 chips and two experiments at once, each
+   ``examples/hpo_cnn.py`` at ``--paper`` scale (budget 300, parallel 15,
+   ``gp``, ASHA from step 9 at eta 3, seeds 0 and 1), each trial training
+   the CNN for 40 steps on its lease's card; the fit executor has one
+   worker, and ``RefitPairing`` makes the two experiments' refits meet
+   in one dispatch once (the loop alone seldom co-batches them).  It fails unless both
+   complete their budgets with no failed trial and no repeated
+   suggestion id, each best accuracy is above 3/43, no executor job
+   failed and no pump died, ``gp_ei`` and ``gp_nll`` launched (counters
+   zeroed just before) and a refit dispatch co-batched the two; it
+   records wall time, trials a second, suggest latency as the scheduler
+   sees it (a timing wrapper around the client), the ASHA outcomes and
+   peak device memory.
 4. the LM kernels against their plain PyTorch versions on the card —
    ``flash_attention`` at the serve shape (B 4, S 3000, H 10, K 1, D 256,
    window 2048) in bf16 and f32, at S = 4096, at granite-8b's shape, with
@@ -101,11 +119,17 @@ and ``{"ok": true, "device": {...}}``.  Details go to
 runs only phase 7 (each kernel built at its first call) and prints its
 lines and the card: the same cases on another checkout's kernels, for
 comparing two trees on one card.
+
+    python3 chip_smoke.py --hpo N          # phase 3b alone, N times
+
+runs the §4 loop N times, each with its own checks, and prints each run's
+line, how many passed and the card: how often the refits co-batch.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -160,6 +184,17 @@ MAIN_EI = (1, 512)   # one lane per exact ask, history in bucket 512
 #: in use, for its pump and its shared fit executor (at one second the
 #: 60 trials outrun the service and every suggest is a miss)
 TRIAL_SECONDS = 3.0
+#: phase 3b, the paper's §4 run: ``examples/hpo_cnn.py --paper`` (budget
+#: 300, parallel 15, 40 steps a trial) for each seed, both experiments at
+#: once on one orchestrator; the time they may take
+HPO_BUDGET = 300
+HPO_PARALLEL = 15
+HPO_STEPS = 40
+HPO_SEEDS = (0, 1)
+HPO_TIMEOUT_S = 600
+#: relative-norm limit of the CNN on the card against the CPU (float32
+#: both, TF32 off: cuDNN's and the CPU's convolutions sum in other orders)
+CNN_LIMIT = 1e-4
 
 #: instructions each library's SASS must hold: the bf16 flash kernel's
 #: wgmma (HGMMA) and TMA loads (UTMALDG); gp_ei's and rglru_scan's
@@ -229,13 +264,19 @@ def device_ms(fn, names, n: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and any(k in e.name for k in names))
+    # a trace can come back without the kernels' records (seen once on
+    # the card, at a 6 us kernel after many traces): trace up to 3 times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start
+                 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and any(k in e.name for k in names))
+        if us > 0:
+            break
     check(us > 0, f"the profiler saw none of {names}")
     return us / 1e3 / n
 
@@ -761,6 +802,355 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     check(launches["gp_nll"] > 0, "gp_nll never launched on the main path")
     check(executor.get("lanes", 0) > executor.get("batched", 0),
           "no refit dispatch co-batched two experiments")
+    return launches
+
+
+# ------------------------------------------------------------ phase 3b
+def phase_cnn():
+    """One batch of the §4 CNN on the card against the same batch on the
+    CPU, from the same parameters: logits, loss and every gradient within
+    ``CNN_LIMIT`` by relative norm; then ``train_cnn``'s wall time a step
+    on the card and the host time of one batch of its data."""
+    from repro_torch.models import cnn
+    dev = torch.device("cuda", 0)
+    cfg = cnn.CNNConfig()
+    params = cnn.init_cnn(0, cfg, device=dev)
+    data = cnn.synthetic_signs(1, 64)
+
+    def run(device):
+        p = {n: {k: t.detach().to(device).requires_grad_()
+                 for k, t in layer.items()} for n, layer in params.items()}
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        logits = cnn.cnn_forward(p, batch["image"], cfg)
+        loss, _ = cnn.cnn_loss(p, batch, cfg)
+        grads = torch.autograd.grad(loss, [t for layer in p.values()
+                                           for t in layer.values()])
+        return [t.detach().cpu() for t in (logits, loss, *grads)]
+
+    got, want = run(dev), run(torch.device("cpu"))
+    errs = [float((g - w).norm() / w.norm().clamp_min(1e-30))
+            for g, w in zip(got, want)]
+    a = {"lr": 3e-3, "momentum": 0.9, "fc_width": 128}
+    cnn.train_cnn(a, steps=2, device=dev)      # cuDNN and cuBLAS set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = cnn.train_cnn(a, steps=HPO_STEPS, device=dev)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / HPO_STEPS
+    t0 = time.perf_counter()
+    for s in range(10):
+        cnn.synthetic_signs(s, 64)
+    data_ms = (time.perf_counter() - t0) * 1e3 / 10
+    emit("cnn", logits_err=errs[0], loss_err=errs[1], grad_errs=errs[2:],
+         limit=CNN_LIMIT, train_step_ms=step_ms, data_batch_ms=data_ms,
+         accuracy=acc)
+    check(max(errs) <= CNN_LIMIT,
+          f"CNN on the card vs the CPU: {max(errs):.3g} > {CNN_LIMIT}")
+
+
+class CNNTrials:
+    """``examples/hpo_cnn.py``'s trial, on the device of the trial's
+    lease; it keeps each run's steps and wall seconds, where the run ends
+    (a completed trial, or one stopped at a report)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.steps, self.seconds = 0, 0.0
+
+    def __call__(self, a, ctx) -> float:
+        from repro_torch.models.cnn import train_cnn
+        done = [0]
+
+        def report(step, value):
+            done[0] = step + 1
+            ctx.report(step, value)
+
+        t0 = time.perf_counter()
+        try:
+            acc = train_cnn(a, steps=HPO_STEPS, report=report,
+                            device=ctx.lease.devices[0])
+            done[0] = HPO_STEPS
+        finally:
+            with self._lock:
+                self.steps += done[0]
+                self.seconds += time.perf_counter() - t0
+        ctx.log(f"accuracy={acc:.4f}")
+        return acc
+
+
+class TimedClient:
+    """The orchestrator's client as the scheduler sees it: every
+    ``suggest`` timed on the host clock (those that hand out suggestions;
+    empty answers only counted) and its ids kept; all else passes
+    through."""
+
+    def __init__(self, client):
+        self._client = client
+        self._lock = threading.Lock()
+        self.lat, self.ids, self.empty = [], [], 0
+
+    def __getattr__(self, name):
+        return getattr(self._client, name)
+
+    def suggest(self, exp_id, count=1):
+        t0 = time.perf_counter()
+        batch = self._client.suggest(exp_id, count)
+        dt = time.perf_counter() - t0
+        with self._lock:
+            if batch.suggestions:
+                self.lat.append(dt)
+                self.ids.extend(s.suggestion_id for s in batch.suggestions)
+            else:
+                self.empty += 1
+        return batch
+
+
+class RefitPairing:
+    """Makes the experiments' refits meet in one dispatch, once.  Left
+    alone the loop seldom co-batches them on the card: refits co-batch
+    only within one shape bucket, the two histories drift apart (ASHA
+    stops one's trials sooner), a pump holds its optimizer lock for long
+    stretches serving misses while a peer's snapshot gives up after 50
+    ms, and a slow cold fit stretches the refit period.  So a watcher
+    thread queues a job on the executor (priority 0) as soon as every
+    experiment has the history a fit needs, all in one bucket.  On the
+    executor's one worker the job takes every experiment's optimizer lock
+    (re-entrant, so the snapshots on this thread pass them), folds the
+    pending observations, marks each optimizer as owing a refit (the
+    debt its own schedule sets every ``refit_period`` observations), has
+    each pump queue it, and runs the first through the executor's own
+    ``_run_batch``, which takes the others as its peers.  The watcher
+    tries again until a dispatch has co-batched or the executor stops."""
+
+    def __init__(self, ex, n: int, service, lock_s: float = 30.0):
+        self.ex, self.n, self.service, self.lock_s = ex, n, service, lock_s
+        self.tries, self.paired, self.held_s = 0, 0, 0.0
+        self._armed = threading.Event()
+        self._watcher = threading.Thread(target=self._watch, daemon=True)
+
+    def start(self) -> None:
+        self._watcher.start()
+
+    def join(self) -> None:
+        self._watcher.join(timeout=60)
+
+    def _cobatched(self) -> bool:
+        stats = self.ex.snapshot()
+        return stats["lanes"] > stats["batched"]
+
+    def _states(self) -> list:
+        with self.service._lock:
+            return list(self.service._exps.values())
+
+    def _ready(self, states) -> bool:
+        from repro_torch.core.suggest import gp as sgp
+        opts = [st.optimizer for st in states]
+        return (len(states) >= self.n and all(st.pump for st in states)
+                and all(len(o._ys) >= max(2, len(o.space)) for o in opts)
+                and len({sgp.bucket_size(len(o._ys)) for o in opts}) == 1)
+
+    def _watch(self) -> None:
+        from repro_torch.api import pipeline
+        while not self.ex._stopped and not self._cobatched():
+            if not self._armed.is_set() and self._ready(self._states()):
+                self._armed.set()
+                self.ex.submit(("pair", self.tries), self._pair,
+                               pipeline.PRIO_MISS)
+            time.sleep(0.01)
+
+    def _pair(self) -> bool:
+        from repro_torch.api import pipeline
+        t0 = time.monotonic()
+        states, held = self._states(), []
+        try:
+            for st in states:
+                if not st.opt_lock.acquire(timeout=self.lock_s):
+                    return False
+                held.append(st.opt_lock)
+            for st in states:
+                pipeline.drain_ops(st)
+            if self._cobatched() or not self._ready(states):
+                return False
+            for st in states:
+                st.optimizer._needs_fit = True
+                st.pump._push_fit_debt(False, 0)
+            with self.ex._cv:
+                fits = [(key, prio, fn) for key, (prio, fn)
+                        in self.ex._jobs.items()
+                        if type(fn) is pipeline.BatchableFit]
+                if len(fits) < self.n:
+                    return False
+                key, prio, fn = fits[0]
+                del self.ex._jobs[key]
+                self.ex._active.add(key)
+            try:
+                again, _ = self.ex._run_batch(key, fn, prio)
+            finally:
+                with self.ex._cv:
+                    self.ex._active.discard(key)
+                    self.ex.stats["executed"] += 1
+            if again:
+                self.ex.submit(key, fn, prio)
+            self.paired += 1
+            return False
+        finally:
+            for lock in held:
+                lock.release()
+            self.tries += 1
+            self.held_s += time.monotonic() - t0
+            self._armed.clear()
+
+
+def phase_hpo():
+    """The paper's §4 run through ``Orchestrator.run``: two experiments of
+    ``examples/hpo_cnn.py`` at ``--paper`` scale at once, on one
+    orchestrator (one ``LocalClient``, so their refits co-batch), each
+    trial training the CNN on its lease's card.  The kernels' launch
+    counters are zeroed just before and read just after."""
+    from repro_torch.api import pipeline
+    from repro_torch.core import (ExperimentConfig, Orchestrator, Param,
+                                  Resources, Space)
+    from repro_torch.kernels import gp as kgp
+
+    orch = Orchestrator(tempfile.mkdtemp(prefix="chip-smoke-hpo-"))
+    client = orch.client = TimedClient(orch.client)
+    orch.cluster_create({"cluster_name": "h100", "pools": [
+        {"name": "gpu", "resource": "gpu",
+         "chips": HPO_PARALLEL * len(HPO_SEEDS)}]})
+    space = Space([Param("lr", "double", 1e-4, 3e-1, log=True),
+                   Param("momentum", "double", 0.0, 0.99),
+                   Param("fc_width", "int", 32, 256)])
+    cfgs = [ExperimentConfig(
+        name=f"traffic-sign-cnn-{seed}", budget=HPO_BUDGET,
+        parallel=HPO_PARALLEL, optimizer="gp", goal="max", space=space,
+        resources=Resources(pool="gpu", chips=1),
+        early_stop={"min_steps": 9, "eta": 3}, seed=seed)
+        for seed in HPO_SEEDS]
+    # A fit executor of one worker whose refits are paired until one
+    # dispatch co-batches, so that the two experiments' refits run as one
+    # co-batched dispatch
+    # (``gp_nll``'s path).  Left alone, the loop co-batched in about half
+    # the card runs: under this load the pumps' refits are urgent (their
+    # queues miss), run at once, and seldom find the other's queued (with
+    # the default two workers, never).
+    pipeline.fit_executor().stop()
+    with pipeline._EXECUTOR_LOCK:
+        ex = pipeline._EXECUTOR = pipeline.FitExecutor(workers=1)
+    pairing = RefitPairing(ex, len(HPO_SEEDS), client._client)
+    before = pipeline.executor_snapshot()
+    pipeline.FitExecutor.MAX_LANES = len(HPO_SEEDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kgp.gp_nll_launches.reset()
+    kgp.gp_ei_launches.reset()
+    pairing.start()
+    # the card's utilization, sampled by nvidia-smi every 500 ms, and the
+    # process's CPU time: where the run's time goes (the service is not
+    # traced: a profiler slows the host-bound loop it would measure)
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "500"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    cpu0 = time.process_time()
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + HPO_TIMEOUT_S
+    trials = CNNTrials()
+    try:
+        exps = [orch.run(cfg, trial_fn=trials, cluster="h100",
+                         background=True) for cfg in cfgs]
+        for exp in exps:
+            orch.wait(exp, timeout=max(1.0, deadline - time.monotonic()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cores = (time.process_time() - cpu0) / wall
+    finally:
+        smi.terminate()
+        util = [int(v) for v in smi.communicate(timeout=30)[0].split()
+                if v.isdigit()]
+    launches = {"gp_nll": kgp.gp_nll_launches.count,
+                "gp_ei": kgp.gp_ei_launches.count}
+    peak = torch.cuda.max_memory_allocated()
+    pipeline.FitExecutor.MAX_LANES = None
+    alive = [exp for exp in exps if orch._threads[exp].is_alive()]
+    for exp in alive:
+        orch.delete(exp)
+    after = pipeline.executor_snapshot() or {}
+    executor = {k: after.get(k, 0) - before.get(k, 0) for k in
+                ("executed", "batched", "lanes", "batched_asks",
+                 "ask_lanes", "failed")}
+    statuses = {exp: orch.status(exp) for exp in exps}
+    pumps = {exp: client.status(exp).pump for exp in exps}
+    outcomes, records = {}, {}
+    for exp in exps:
+        records[exp] = orch.store.load_observation_records(exp)
+        meta = [r.get("metadata") or {} for r in records[exp]]
+        outcomes[exp] = dict(
+            completed=sum(1 for m in meta if not m.get("pruned")),
+            stopped=sum(1 for m in meta if m.get("pruned")
+                        and not m.get("paused")),
+            stopped_at_step_9=sum(1 for m in meta
+                                  if m.get("pruned_at_step") == 9),
+            paused_then_pruned=sum(1 for m in meta if m.get("paused")),
+            pauses=sum(1 for line in orch.store.iter_logs(exp)
+                       if "paused at step" in line))
+    client.close()
+    ex.stop()                        # its queue holds the pumps' jobs
+    pairing.join()
+    ms = np.asarray(client.lat if client.lat else [float("nan")]) * 1e3
+    n_obs = sum(len(r) for r in records.values())
+    emit("hpo", experiments=len(exps), budget=HPO_BUDGET,
+         parallel=HPO_PARALLEL, steps=HPO_STEPS, wall_s=wall,
+         trials_per_s=n_obs / wall, train_steps=trials.steps,
+         gpu_util_pct=sum(util) / max(1, len(util)),
+         gpu_util_samples=len(util), host_cores=cores,
+         trial_s=trials.seconds,
+         slot_busy=trials.seconds / (wall * HPO_PARALLEL * len(exps)),
+         suggest_p50_ms=float(np.percentile(ms, 50)),
+         suggest_p90_ms=float(np.percentile(ms, 90)),
+         suggest_p99_ms=float(np.percentile(ms, 99)),
+         suggests=len(client.lat), empty_suggests=client.empty,
+         observations=[st.get("observations") for st in statuses.values()],
+         failures=[st.get("failures") for st in statuses.values()],
+         best=[(st.get("best") or {}).get("value")
+               for st in statuses.values()],
+         asha=list(outcomes.values()), launches=dict(launches),
+         executor=executor, pairing_tries=pairing.tries,
+         pairing_paired=pairing.paired, pairing_held_s=pairing.held_s,
+         peak_gb=peak / 1e9,
+         pump=[{k: p.get(k) for k in
+                ("hits", "misses", "coalesced", "prefilled",
+                 "batched_prefilled", "maintained", "invalidated")}
+               for p in pumps.values()],
+         refit=[p.get("refit") for p in pumps.values()])
+    check(not alive, f"experiments still running after {HPO_TIMEOUT_S} s")
+    ids = []
+    for exp, st in statuses.items():
+        check(st.get("state") == "complete", f"{exp}: state {st.get('state')}")
+        check(st.get("observations") == HPO_BUDGET
+              and len(records[exp]) == HPO_BUDGET,
+              f"{exp}: {len(records[exp])} observations != {HPO_BUDGET}")
+        check(st.get("failures") == 0
+              and not any(r.get("failed") for r in records[exp]),
+              f"{exp}: a trial failed")
+        best = (st.get("best") or {}).get("value")
+        check(best is not None and math.isfinite(best)
+              and best > 3.0 / 43, f"{exp}: best accuracy {best}")
+        ids += [r.get("suggestion_id") for r in records[exp]]
+    check(None not in ids and len(set(ids)) == len(ids)
+          and len(set(client.ids)) == len(client.ids),
+          "a suggestion id repeats")
+    check(executor["failed"] == 0, "executor jobs failed: "
+          f"{after.get('last_error')}")
+    for exp, pump in pumps.items():
+        check("pump_error" not in pump,
+              f"{exp}: pump died: {pump.get('pump_error')}")
+    check(launches["gp_ei"] > 0, "gp_ei never launched in the §4 run")
+    check(launches["gp_nll"] > 0, "gp_nll never launched in the §4 run")
+    check(executor["lanes"] > executor["batched"],
+          "no refit dispatch co-batched the two experiments")
+    del orch, client, trials
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1582,6 +1972,17 @@ def main() -> int:
         phase_device_times()
         print(card_line())
         return 0
+    if sys.argv[1:2] == ["--hpo"] and len(sys.argv) == 3:
+        runs, passed = int(sys.argv[2]), 0
+        for i in range(runs):
+            try:
+                phase_hpo()
+                passed += 1
+            except RuntimeError as e:
+                print(f"chip_smoke: hpo run {i}: {e}", flush=True)
+        print(f"hpo: {passed} of {runs} runs passed")
+        print(card_line())
+        return 0 if passed == runs else 1
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -1591,6 +1992,8 @@ def main() -> int:
     phase_gp_parity()
     phase_gp_host()
     launches = phase_service()
+    phase_cnn()
+    hpo = phase_hpo()
     summary.update(phase_lm_kernels())
     launches.update(phase_serve())
     summary.update(phase_quant_kernels())
@@ -1621,6 +2024,8 @@ def main() -> int:
              launches=launches["int8_quantize"],
              **summary["int8_quantize"]),
     ]
+    for k in kernels:
+        k["hpo_launches"] = hpo.get(k["name"], 0)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.manager import (CheckpointManager, load_pytree,
+                                            save_pytree)
+
+__all__ = ["CheckpointManager", "load_pytree", "save_pytree"]

@@ -1,8 +1,8 @@
 """Architecture registry of the port: the architectures it runs.
 
-The reference's registry has ten; the port lists only those whose layers
-it has ported (the dense and hybrid families).  Asking for any other name
-raises, naming the ROADMAP item that ports it.
+The reference's registry has ten; the port lists the four of the dense
+and hybrid families, whose layers it has ported.  Asking for any other
+name raises, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ from repro_torch.models.common import ModelConfig
 
 _MODULES = {
     "granite-8b": "granite_8b",
+    "granite-3-8b": "granite_3_8b",
+    "phi3-medium-14b": "phi3_medium_14b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
@@ -25,6 +27,7 @@ def get_config(name: str) -> ModelConfig:
         raise NotImplementedError(
             f"arch {name!r} is not in the port, which runs {list(_MODULES)}; "
             "the other architectures of the JAX package (MoE, MLA, "
-            "encoder-decoder, VLM, xLSTM) are queued in ROADMAP.md §1")
+            "parallel-block, encoder-decoder, VLM, xLSTM) are queued in "
+            "ROADMAP.md §1")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

@@ -1,10 +1,16 @@
-# The suggestion-service core of the port: spaces, experiment configs,
-# the system-of-record store and the optimizers.  The cluster,
-# scheduler and orchestrator are not ported yet.
+# The paper's primary contribution — parallel hyperparameter-optimization
+# infrastructure: spaces + suggestion service + cluster + scheduler +
+# lifecycle + monitoring.  (Population execution, ``vmap_trials``, is not
+# ported yet.)
+from repro_torch.core.cluster import Cluster, ClusterConfig, PoolConfig
 from repro_torch.core.experiment import ExperimentConfig, Resources, TrialSpec
+from repro_torch.core.orchestrator import Orchestrator
+from repro_torch.core.scheduler import Scheduler, TrialContext, TrialStopped
 from repro_torch.core.space import Param, Space
 from repro_torch.core.store import Store
 from repro_torch.core.suggest import ASHA, Observation, make_optimizer
 
-__all__ = ["ExperimentConfig", "Resources", "TrialSpec", "Param", "Space",
-           "Store", "ASHA", "Observation", "make_optimizer"]
+__all__ = ["Cluster", "ClusterConfig", "PoolConfig", "ExperimentConfig",
+           "Resources", "TrialSpec", "Orchestrator", "Scheduler",
+           "TrialContext", "TrialStopped", "Param", "Space", "Store",
+           "ASHA", "Observation", "make_optimizer"]

@@ -1,2 +1,2 @@
-"""Entry points of the port: the LM server (``serve``) and its step
-functions (``steps``)."""
+"""Entry points of the port: the CLI verbs (``cli``), the LM server
+(``serve``) and its step functions (``steps``)."""

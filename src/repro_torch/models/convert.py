@@ -8,6 +8,10 @@ port's flat list of layers.  Dense weights stay (d_in, d_out), the layout
 the port's ``layers.dense`` applies as ``x @ w``, so no weight is
 transposed.  With it the two packages compute the same function on the
 same weights, which is how the tests hold one against the other.
+
+``cnn_params_from_reference(tree, device)`` does the same for the §4 CNN
+(``models/cnn.py``): its conv weights go from the reference's HWIO to
+PyTorch's OIHW, its fully connected weights stay (in, out).
 """
 from __future__ import annotations
 
@@ -49,4 +53,18 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
               if name != "groups"}
     params["layers"] = [tree_map(conv, layer) for layer in
                         unstack_groups(cfg, tree["groups"])]
+    return params
+
+
+def cnn_params_from_reference(tree: Dict[str, Any], device="cpu"
+                              ) -> Dict[str, Any]:
+    """The reference's ``init_cnn`` pytree -> the port's CNN parameters
+    on ``device``: conv ``w`` HWIO -> OIHW, everything else as it is."""
+    params = {}
+    for name, layer in tree.items():
+        w = np.asarray(layer["w"])
+        if name.startswith("conv"):
+            w = w.transpose(3, 2, 0, 1)
+        params[name] = {"w": _tensor(np.ascontiguousarray(w), device),
+                        "b": _tensor(layer["b"], device)}
     return params

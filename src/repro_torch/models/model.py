@@ -17,6 +17,9 @@ API (functions of plain dicts of tensors):
   prefill(params, batch, cache_len) -> (cache, last_logits)
   decode_step(params, cache, tokens) -> (logits, cache)
   init_cache(batch_size, cache_len, device) -> cache
+
+``init`` and ``init_cache`` make their tensors on the CUDA card unless
+given ``device`` (``device.resolve``: no card and no ``device`` raises).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Any, Callable, Dict, Iterator, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
@@ -183,13 +187,15 @@ class LM:
         self.specs = build_specs(cfg)
 
     # ------------------------------------------------------------- params
-    def init(self, seed: int = 0, device="cpu", dtype=None) -> Params:
+    def init(self, seed: int = 0, device: DeviceLike = None,
+             dtype=None) -> Params:
         """Random parameters from a ``torch.Generator`` seeded with
-        ``seed`` on ``device``, stored in ``dtype`` (the config's storage
-        dtype by default).  The distributions are the reference's; the
-        numbers are not (JAX and torch generators differ)."""
+        ``seed`` on ``device`` (the CUDA card by default), stored in
+        ``dtype`` (the config's storage dtype by default).  The
+        distributions are the reference's; the numbers are not (JAX and
+        torch generators differ)."""
         cfg = self.cfg
-        init = L.Init(seed, device, dtype or cfg.store_dtype)
+        init = L.Init(seed, resolve(device), dtype or cfg.store_dtype)
         params: Params = {
             "embed": L.init_embedding(init, cfg.vocab_size, cfg.d_model, cfg),
             "final_norm": L.init_norm(init, cfg.d_model, cfg),
@@ -217,7 +223,10 @@ class LM:
         return L.unembed(table, x, softcap=cfg.logit_softcap)
 
     # ------------------------------------------------------------ serving
-    def init_cache(self, batch: int, cache_len: int, device="cpu"):
+    def init_cache(self, batch: int, cache_len: int,
+                   device: DeviceLike = None):
+        """Zeroed decode caches on ``device`` (the CUDA card by default)."""
+        device = resolve(device)
         return {"layers": [_init_cache_entry(spec, self.cfg, batch,
                                              cache_len, device)
                            for spec in self.specs],

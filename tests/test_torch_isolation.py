@@ -50,12 +50,25 @@ def test_source_imports_neither_jax_nor_the_reference(path):
 
 
 def test_resolve_default_needs_cuda(monkeypatch):
+    """``resolve`` and the LM's ``init`` / ``init_cache``, which resolve
+    their device through it: the card by default, no CPU fall-back."""
+    from repro_torch.configs import get_config
     from repro_torch.device import resolve
+    from repro_torch.models import LM
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve()
     assert resolve("cpu") == torch.device("cpu")
     assert resolve(torch.device("cpu")) == torch.device("cpu")
+    model = LM(get_config("granite-8b").reduced())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(1, 8)
+    params = model.init(device="cpu")
+    assert params["embed"]["table"].device.type == "cpu"
+    assert model.init_cache(1, 8, device="cpu")["pos"].device.type == "cpu"
+    assert model.init(device="meta")["embed"]["table"].is_meta
 
 
 def test_local_client_default_device_needs_cuda(monkeypatch):

@@ -170,6 +170,41 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_nothing():
     assert krg.rglru_scan_launches.count == n_rg
 
 
+def _op_cases():
+    """(op, args) of ``ops.flash_attention``, ``ops.rglru_scan`` and
+    ``ops.int8_quantize`` on CPU tensors, with their plain versions."""
+    _, (q, k, v) = _flash_inputs(FLASH_CASES["mqa_window"], "f32")
+    la, b = (torch.from_numpy(a) for a in _scan_inputs(1, 30, 16))
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(700)
+                         .astype(np.float32))
+    return {
+        "flash_attention": (lambda **kw: ops.flash_attention(
+            q, k, v, window=16, **kw),
+            lambda: ref.flash_attention_ref(q, k, v, window=16)),
+        "rglru_scan": (lambda **kw: ops.rglru_scan(la, b, **kw),
+                       lambda: ref.rglru_scan_ref(la, b)),
+        "int8_quantize": (lambda **kw: ops.int8_quantize(x, **kw),
+                          lambda: ref.int8_quant_ref(x, 256)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan",
+                                  "int8_quantize"])
+def test_ops_force_kernel_needs_a_cuda_tensor(name):
+    """``force_kernel`` is accepted as the reference's ops accept it: by
+    default a CPU tensor takes the plain version; ``force_kernel=True``
+    asks for the hand-written kernel, which on a CPU tensor raises
+    rather than quietly running the plain version in its place."""
+    op, plain = _op_cases()[name]
+    as_tuple = lambda t: t if isinstance(t, tuple) else (t,)  # noqa: E731
+    want = as_tuple(plain())
+    for got in (as_tuple(op()), as_tuple(op(force_kernel=False))):
+        assert len(got) == len(want)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="force_kernel=True"):
+        op(force_kernel=True)
+
+
 def test_wrappers_raise_on_a_device_without_a_kernel():
     _, (q, k, v) = _flash_inputs(FLASH_CASES["mha_causal"], "f32")
     with pytest.raises(ValueError, match="no kernel"):

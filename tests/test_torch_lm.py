@@ -6,7 +6,8 @@ counterpart in ``repro.models`` on the same float32 weights and inputs
 inputs made with numpy from a seed); then the whole ``LM`` — prefill
 logits and caches, then 8 decode steps — for reduced ``recurrentgemma-2b``
 (3 layers, and 8 layers so that a group repeats and a tail group
-follows) and reduced ``granite-8b``, with prompts shorter and longer than
+follows) and reduced ``granite-8b``, ``granite-3-8b`` and
+``phi3-medium-14b``, with prompts shorter and longer than
 the reduced window of 32; and ``serve`` against the reference's ``serve``
 token for token.  The JAX outputs are made once per module (fixtures).
 
@@ -86,7 +87,8 @@ def _x(shape, seed=0, scale=1.0):
 
 
 # ------------------------------------------------------------- configs
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-8b",
+                                  "granite-3-8b", "phi3-medium-14b"])
 def test_configs_match_reference(arch):
     """The port's copies of the configs are the reference's, field for
     field (less ``use_pallas``), full size and reduced, with the same
@@ -103,9 +105,10 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_runs_only_ported_archs():
-    assert sorted(list_archs()) == ["granite-8b", "recurrentgemma-2b"]
+    assert sorted(list_archs()) == ["granite-3-8b", "granite-8b",
+                                    "phi3-medium-14b", "recurrentgemma-2b"]
     for name in ("xlstm-125m", "deepseek-v2-lite-16b", "whisper-medium",
-                 "no-such-arch"):
+                 "command-r-plus-104b", "no-such-arch"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(name)
     for cfg in (jget_config("xlstm-125m"), jget_config("granite-moe-3b-a800m"),
@@ -266,6 +269,8 @@ LM_CASES = {
     "rg3_long": ("recurrentgemma-2b", {}, 45),
     "rg8_long": ("recurrentgemma-2b", {"n_layers": 8}, 45),
     "granite": ("granite-8b", {}, 24),
+    "granite3": ("granite-3-8b", {}, 24),
+    "phi3": ("phi3-medium-14b", {}, 20),
 }
 GEN = 8
 
@@ -328,7 +333,7 @@ def test_init_cache_matches_reference(arch, over):
     (a window ring of min(cache_len, window) slots for local attention)."""
     jc, tc = _cfgs(arch, **over)
     want = JM.LM(jc).init_cache(3, 50)
-    got = LM(tc).init_cache(3, 50)
+    got = LM(tc).init_cache(3, 50, device="cpu")
     assert got["pos"].tolist() == np.asarray(want["pos"]).tolist()
     want_layers = unstack_groups(tc, _np(want["layers"]))
     assert len(got["layers"]) == len(want_layers) == tc.n_layers
