@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: the GP suggestion
-service, the paper's §4 HPO loop, the LM server and the error-feedback
-int8 all-reduce.
+service, the paper's §4 HPO loop (in process, over HTTP from worker
+processes, and through a sharded fleet that loses a shard), the LM
+server and the error-feedback int8 all-reduce.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -57,6 +58,36 @@ script exits non-zero and prints no result):
    records wall time, trials a second, suggest latency as the scheduler
    sees it (a timing wrapper around the client), the ASHA outcomes and
    peak device memory.
+3c. the §4 run over the wire, the paper's own topology — ``serve_api`` on
+   the card in this process, and one worker process a seed, each the
+   port's CLI (``cluster create`` of a pool ``gpu`` of 15 chips, then
+   ``run --service URL --cluster``) running 3b's experiment with the
+   trial ``chip_smoke:cnn_trial`` (``examples/hpo_cnn.py``'s, on its
+   lease's card); no ``RefitPairing``.  First an idle worker's
+   ``Orchestrator`` is probed in a process of its own: it must start no
+   thread and hold no tensor on the card.  It fails unless both workers
+   exit 0, the service holds exactly 300 observations an experiment with
+   no repeated suggestion id and no failed trial (nor any in the
+   workers' stores), each best accuracy is above 3/43, no executor job
+   failed and no pump died, and ``gp_ei`` launched in the service; it
+   records wall time, trials a second, the service's suggest latency
+   (a timing wrapper around its backend: the wire left out), its hits
+   and misses, ``gp_nll`` launches and co-batched dispatches, the card's
+   utilization, host cores and device memory per process, and a
+   worker's trial seconds a step.
+3d. the fleet with a shard failover — ``serve_fleet`` with two shards on
+   the card in this process, four ``gp`` experiments at the paper's
+   budget and parallelism over the same space, each driven by
+   ``Orchestrator.run(fleet=URL)`` with phase 3's stand-in trial; once a
+   third of all observations are in, the listener of the shard owning
+   the most experiments is shut.  It fails unless the experiments were
+   on both shards, the manager counts one dead shard and maps it no
+   more, every experiment completes exactly its budget with no repeated
+   suggestion id and no duplicate observation, the survivor serves every
+   adopted experiment, ``gp_ei`` launched after the failover (counters
+   zeroed there) and no executor job failed; it records wall time,
+   detection (shut to dead) and adoption (dead to the survivor's first
+   suggestion for each adopted experiment, its cold refit included).
 4. the LM kernels against their plain PyTorch versions on the card —
    ``flash_attention`` at the serve shape (B 4, S 3000, H 10, K 1, D 256,
    window 2048) in bf16 and f32, at S = 4096, at granite-8b's shape, with
@@ -124,6 +155,11 @@ comparing two trees on one card.
 
 runs the §4 loop N times, each with its own checks, and prints each run's
 line, how many passed and the card: how often the refits co-batch.
+
+    python3 chip_smoke.py --remote         # phases 3c and 3d alone
+
+runs the remote topology and the fleet failover (the kernels build at
+their first call in the service) and prints their lines and the card.
 """
 from __future__ import annotations
 
@@ -132,6 +168,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -699,16 +736,27 @@ def objective(a) -> float:
     return math.exp(-0.5 * (lr * lr + mom * mom + fc * fc))
 
 
+def percentiles_ms(lat) -> dict:
+    ms = np.asarray(lat if lat else [float("nan")]) * 1e3
+    return {f"suggest_p{q}_ms": float(np.percentile(ms, q))
+            for q in (50, 90, 99)}
+
+
+def hpo_space():
+    from repro_torch.core import Param, Space
+    return Space([Param("lr", "double", 1e-4, 3e-1, log=True),
+                  Param("momentum", "double", 0.0, 0.99),
+                  Param("fc_width", "int", 32, 256)])
+
+
 def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     from repro_torch.api import CreateExperiment, LocalClient, ObserveRequest
     from repro_torch.api import pipeline
     from repro_torch.core.experiment import ExperimentConfig
-    from repro_torch.core.space import Param, Space, strip_internal
+    from repro_torch.core.space import strip_internal
     from repro_torch.kernels import gp as kgp
 
-    space = Space([Param("lr", "double", 1e-4, 3e-1, log=True),
-                   Param("momentum", "double", 0.0, 0.99),
-                   Param("fc_width", "int", 32, 256)])
+    space = hpo_space()
     client = LocalClient(tempfile.mkdtemp(prefix="chip-smoke-"))
     lat, ids, values, errors = [], [], [], []
     lock = threading.Lock()
@@ -761,11 +809,8 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     executor = pipeline.executor_snapshot() or {}
     client.close()
     pipeline.FitExecutor.MAX_LANES = None
-    ms = np.asarray(lat if lat else [float('nan')]) * 1e3
     emit("service", experiments=n_exp, budget=budget, parallel=parallel,
-         wall_s=wall, suggest_p50_ms=float(np.percentile(ms, 50)),
-         suggest_p90_ms=float(np.percentile(ms, 90)),
-         suggest_p99_ms=float(np.percentile(ms, 99)),
+         wall_s=wall, **percentiles_ms(lat),
          observations=sum(st.observations for st in statuses),
          best=[st.best and st.best["value"] for st in statuses],
          launches=dict(launches), executor=executor,
@@ -848,46 +893,67 @@ def phase_cnn():
           f"CNN on the card vs the CPU: {max(errs):.3g} > {CNN_LIMIT}")
 
 
+def train_trial(a, ctx, done: list) -> float:
+    """``examples/hpo_cnn.py:18-22``'s trial on the device of the trial's
+    lease, ``HPO_STEPS`` steps; ``done[0]`` holds the steps run so far
+    (a stopped trial ends at a report)."""
+    from repro_torch.models.cnn import train_cnn
+
+    def report(step, value):
+        done[0] = step + 1
+        ctx.report(step, value)
+
+    acc = train_cnn(a, steps=HPO_STEPS, report=report,
+                    device=ctx.lease.devices[0])
+    done[0] = HPO_STEPS
+    ctx.log(f"accuracy={acc:.4f}")
+    return acc
+
+
+def cnn_trial(a, ctx) -> float:
+    """Phase 3c's trial, the entrypoint ``chip_smoke:cnn_trial`` of the
+    worker processes: ``train_trial``, logging the steps it ran and its
+    wall seconds and its process's peak of reserved device memory (the
+    phase reads them from the worker's store)."""
+    done, t0 = [0], time.perf_counter()
+    try:
+        return train_trial(a, ctx, done)
+    finally:
+        ctx.log(f"cnn steps={done[0]} "
+                f"seconds={time.perf_counter() - t0:.6f} "
+                f"reserved={torch.cuda.max_memory_reserved()}")
+
+
 class CNNTrials:
-    """``examples/hpo_cnn.py``'s trial, on the device of the trial's
-    lease; it keeps each run's steps and wall seconds, where the run ends
-    (a completed trial, or one stopped at a report)."""
+    """``train_trial`` in this process; it keeps each run's steps and
+    wall seconds, where the run ends (a completed trial, or one stopped at
+    a report)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.steps, self.seconds = 0, 0.0
 
     def __call__(self, a, ctx) -> float:
-        from repro_torch.models.cnn import train_cnn
-        done = [0]
-
-        def report(step, value):
-            done[0] = step + 1
-            ctx.report(step, value)
-
-        t0 = time.perf_counter()
+        done, t0 = [0], time.perf_counter()
         try:
-            acc = train_cnn(a, steps=HPO_STEPS, report=report,
-                            device=ctx.lease.devices[0])
-            done[0] = HPO_STEPS
+            return train_trial(a, ctx, done)
         finally:
             with self._lock:
                 self.steps += done[0]
                 self.seconds += time.perf_counter() - t0
-        ctx.log(f"accuracy={acc:.4f}")
-        return acc
 
 
 class TimedClient:
-    """The orchestrator's client as the scheduler sees it: every
-    ``suggest`` timed on the host clock (those that hand out suggestions;
-    empty answers only counted) and its ids kept; all else passes
-    through."""
+    """A client as its caller sees it: every ``suggest`` timed on the
+    host clock (those that hand out suggestions; empty answers only
+    counted), its ids kept, and when each experiment was first served
+    after ``mark`` is set; all else passes through."""
 
     def __init__(self, client):
         self._client = client
         self._lock = threading.Lock()
         self.lat, self.ids, self.empty = [], [], 0
+        self.mark, self.first = None, {}
 
     def __getattr__(self, name):
         return getattr(self._client, name)
@@ -895,14 +961,61 @@ class TimedClient:
     def suggest(self, exp_id, count=1):
         t0 = time.perf_counter()
         batch = self._client.suggest(exp_id, count)
-        dt = time.perf_counter() - t0
+        t1 = time.perf_counter()
         with self._lock:
             if batch.suggestions:
-                self.lat.append(dt)
+                self.lat.append(t1 - t0)
                 self.ids.extend(s.suggestion_id for s in batch.suggestions)
+                if self.mark is not None:
+                    self.first.setdefault(exp_id, t1)
             else:
                 self.empty += 1
         return batch
+
+
+class CardSampler:
+    """While a phase runs: the card's utilization (nvidia-smi every 500
+    ms), the device memory of each process on it (``--query-compute-apps``
+    every 2 s; the reading with the largest total, MiB a process, largest
+    first: in a container every process reads as pid 1) and the host CPU
+    seconds of each watched process (``/proc/<pid>/stat``, last reading)."""
+
+    def __init__(self, pids: dict):
+        self.pids, self.tick = dict(pids), os.sysconf("SC_CLK_TCK")
+        self.util, self.apps_mib, self.cpu_s = [], [], {}
+        self._stop = threading.Event()
+        self._smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "500"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(2.0):
+            out = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True, timeout=60).stdout
+            mib = sorted((int(m) for m in re.findall(r",\s*(\d+)", out)),
+                         reverse=True)
+            if sum(mib) > sum(self.apps_mib):
+                self.apps_mib = mib
+            for name, pid in self.pids.items():
+                try:
+                    with open(f"/proc/{pid}/stat") as f:
+                        fields = f.read().rsplit(")", 1)[1].split()
+                except OSError:
+                    continue
+                self.cpu_s[name] = (int(fields[11]) + int(fields[12])) \
+                    / self.tick
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=60)
+        self._smi.terminate()
+        self.util = [int(v) for v in self._smi.communicate(timeout=30)[0]
+                     .split() if v.isdigit()]
 
 
 class RefitPairing:
@@ -1017,12 +1130,9 @@ def phase_hpo():
     orch.cluster_create({"cluster_name": "h100", "pools": [
         {"name": "gpu", "resource": "gpu",
          "chips": HPO_PARALLEL * len(HPO_SEEDS)}]})
-    space = Space([Param("lr", "double", 1e-4, 3e-1, log=True),
-                   Param("momentum", "double", 0.0, 0.99),
-                   Param("fc_width", "int", 32, 256)])
     cfgs = [ExperimentConfig(
         name=f"traffic-sign-cnn-{seed}", budget=HPO_BUDGET,
-        parallel=HPO_PARALLEL, optimizer="gp", goal="max", space=space,
+        parallel=HPO_PARALLEL, optimizer="gp", goal="max", space=hpo_space(),
         resources=Resources(pool="gpu", chips=1),
         early_stop={"min_steps": 9, "eta": 3}, seed=seed)
         for seed in HPO_SEEDS]
@@ -1044,13 +1154,10 @@ def phase_hpo():
     kgp.gp_nll_launches.reset()
     kgp.gp_ei_launches.reset()
     pairing.start()
-    # the card's utilization, sampled by nvidia-smi every 500 ms, and the
-    # process's CPU time: where the run's time goes (the service is not
-    # traced: a profiler slows the host-bound loop it would measure)
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=utilization.gpu",
-         "--format=csv,noheader,nounits", "-lms", "500"],
-        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    # the card's utilization and the process's CPU time: where the run's
+    # time goes (the service is not traced: a profiler slows the
+    # host-bound loop it would measure)
+    sampler = CardSampler({})
     cpu0 = time.process_time()
     t0 = time.perf_counter()
     deadline = time.monotonic() + HPO_TIMEOUT_S
@@ -1064,9 +1171,8 @@ def phase_hpo():
         wall = time.perf_counter() - t0
         cores = (time.process_time() - cpu0) / wall
     finally:
-        smi.terminate()
-        util = [int(v) for v in smi.communicate(timeout=30)[0].split()
-                if v.isdigit()]
+        sampler.stop()
+    util = sampler.util
     launches = {"gp_nll": kgp.gp_nll_launches.count,
                 "gp_ei": kgp.gp_ei_launches.count}
     peak = torch.cuda.max_memory_allocated()
@@ -1096,18 +1202,15 @@ def phase_hpo():
     client.close()
     ex.stop()                        # its queue holds the pumps' jobs
     pairing.join()
-    ms = np.asarray(client.lat if client.lat else [float("nan")]) * 1e3
     n_obs = sum(len(r) for r in records.values())
     emit("hpo", experiments=len(exps), budget=HPO_BUDGET,
          parallel=HPO_PARALLEL, steps=HPO_STEPS, wall_s=wall,
          trials_per_s=n_obs / wall, train_steps=trials.steps,
          gpu_util_pct=sum(util) / max(1, len(util)),
          gpu_util_samples=len(util), host_cores=cores,
-         trial_s=trials.seconds,
+         device_mib_by_process=sampler.apps_mib, trial_s=trials.seconds,
          slot_busy=trials.seconds / (wall * HPO_PARALLEL * len(exps)),
-         suggest_p50_ms=float(np.percentile(ms, 50)),
-         suggest_p90_ms=float(np.percentile(ms, 90)),
-         suggest_p99_ms=float(np.percentile(ms, 99)),
+         **percentiles_ms(client.lat),
          suggests=len(client.lat), empty_suggests=client.empty,
          observations=[st.get("observations") for st in statuses.values()],
          failures=[st.get("failures") for st in statuses.values()],
@@ -1152,6 +1255,372 @@ def phase_hpo():
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------ phase 3c
+#: the workers of phase 3c: ``python -m repro_torch.launch.cli`` with the
+#: checkout's ``src`` and root importable (``chip_smoke:cnn_trial``)
+CLI = [sys.executable, "-m", "repro_torch.launch.cli"]
+
+#: what an idle worker's ``Orchestrator`` costs: its ``LocalClient`` is
+#: never used by ``run(service=)``; it must start no thread and hold no
+#: tensor on the card (the CUDA context its device resolution creates is
+#: the one the trials use)
+IDLE_PROBE = r"""
+import json, os, subprocess, sys, threading, time
+t0 = time.perf_counter()
+import torch
+from repro_torch.core import Orchestrator
+t1 = time.perf_counter()
+orch = Orchestrator(sys.argv[1])
+t2 = time.perf_counter()
+smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                      "--format=csv,noheader,nounits"], capture_output=True,
+                     text=True, timeout=60).stdout
+print(json.dumps({"import_s": t1 - t0, "init_s": t2 - t1,
+                  "threads": [t.name for t in threading.enumerate()
+                              if t is not threading.main_thread()],
+                  "allocated": torch.cuda.memory_allocated(),
+                  "reserved": torch.cuda.memory_reserved(),
+                  "pid": os.getpid(), "compute_apps": smi.split("\n")}))
+"""
+
+
+def worker_env() -> dict:
+    return dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}",
+                PYTHONUNBUFFERED="1")
+
+
+def phase_remote():
+    """The paper's §4 run over the wire: ``serve_api`` on the card in
+    this process (so the kernels' counters can be read), and one worker
+    process a seed, each the port's CLI (``cluster create`` of a pool
+    ``gpu`` of 15 chips, then ``run --service URL --cluster``) running
+    ``examples/hpo_cnn.py --paper`` with the trial ``chip_smoke:cnn_trial``
+    on its lease's card.  No ``RefitPairing``: whether refits co-batch is
+    what the phase reports."""
+    from repro_torch.api import pipeline
+    from repro_torch.api.http import serve_api
+    from repro_torch.core import ExperimentConfig, Resources
+    from repro_torch.core.store import Store
+    from repro_torch.kernels import gp as kgp
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-remote-"))
+    server = serve_api(str(tmp / "service"), device="cuda").start()
+    backend, procs = server.backend, []
+    try:
+        env = worker_env()
+        probe = subprocess.Popen(
+            [sys.executable, "-c", IDLE_PROBE, str(tmp / "probe")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)
+        roots, creates = {}, []
+        for seed in HPO_SEEDS:
+            roots[seed] = tmp / f"worker-{seed}"
+            roots[seed].mkdir()
+            (roots[seed] / "cluster.json").write_text(json.dumps({
+                "cluster_name": f"worker-{seed}", "pools": [
+                    {"name": "gpu", "resource": "gpu",
+                     "chips": HPO_PARALLEL}]}))
+            cfg = ExperimentConfig(
+                name=f"traffic-sign-cnn-{seed}", budget=HPO_BUDGET,
+                parallel=HPO_PARALLEL, optimizer="gp", goal="max",
+                space=hpo_space(), resources=Resources(pool="gpu", chips=1),
+                early_stop={"min_steps": 9, "eta": 3}, seed=seed,
+                entrypoint="chip_smoke:cnn_trial").to_json()
+            (roots[seed] / "exp.json").write_text(json.dumps(cfg))
+            creates.append(subprocess.run(
+                CLI + ["--store", str(roots[seed]), "cluster",
+                       "create", "-f", str(roots[seed] / "cluster.json")],
+                capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=300))
+        out, err = probe.communicate(timeout=300)
+        check(probe.returncode == 0, f"idle probe: {err[-2000:]}")
+        idle = json.loads(out.strip().splitlines()[-1])
+        for c in creates:
+            check(c.returncode == 0, f"cluster create: {c.stderr[-2000:]}")
+
+        timed = TimedClient(backend)
+        before = pipeline.executor_snapshot() or {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kgp.gp_nll_launches.reset()
+        kgp.gp_ei_launches.reset()
+        cpu0, t0 = time.process_time(), time.perf_counter()
+        with patched(server._httpd.RequestHandlerClass, backend=timed):
+            for seed in HPO_SEEDS:
+                log = open(roots[seed] / "worker.log", "w")
+                procs.append(subprocess.Popen(
+                    CLI + ["--store", str(roots[seed]), "run",
+                           "-f", str(roots[seed] / "exp.json"),
+                           "--service", server.url,
+                           "--cluster", f"worker-{seed}"],
+                    stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+                log.close()
+            sampler = CardSampler({f"worker-{s}": p.pid
+                                   for s, p in zip(HPO_SEEDS, procs)})
+            deadline = time.monotonic() + HPO_TIMEOUT_S
+            try:
+                for proc in procs:
+                    proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+            finally:
+                sampler.stop()
+        wall = time.perf_counter() - t0
+        cores = (time.process_time() - cpu0) / wall
+        launches = {"gp_nll": kgp.gp_nll_launches.count,
+                    "gp_ei": kgp.gp_ei_launches.count}
+        peak = torch.cuda.max_memory_allocated()
+        rcs = [proc.poll() for proc in procs]
+        after = pipeline.executor_snapshot() or {}
+        executor = {k: after.get(k, 0) - before.get(k, 0) for k in
+                    ("executed", "batched", "lanes", "batched_asks",
+                     "ask_lanes", "failed")}
+        store = Store(str(tmp / "service"))
+        exps = store.list_experiments()
+        statuses = {e: backend.status(e) for e in exps}
+        records = {e: store.load_observation_records(e) for e in exps}
+        workers = []
+        for seed, proc in zip(HPO_SEEDS, procs):
+            wstore = Store(str(roots[seed]))
+            steps = secs = reserved = 0
+            failures = []
+            for e in wstore.list_experiments():
+                failures.append(wstore.get_status(e).get("failures"))
+                for line in wstore.iter_logs(e):
+                    m = re.search(r"cnn steps=(\d+) seconds=([\d.]+) "
+                                  r"reserved=(\d+)", line)
+                    if m:
+                        steps += int(m.group(1))
+                        secs += float(m.group(2))
+                        reserved = max(reserved, int(m.group(3)))
+            workers.append(dict(
+                seed=seed, rc=proc.returncode, failures=failures,
+                steps=steps, trial_s=secs,
+                ms_per_step=secs * 1e3 / max(1, steps),
+                cpu_s=sampler.cpu_s.get(f"worker-{seed}"),
+                reserved_gb=reserved / 1e9,
+                tail=(roots[seed] / "worker.log").read_text()[-1500:]
+                if proc.returncode else ""))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        server.shutdown()
+    n_obs = sum(len(r) for r in records.values())
+    emit("remote", experiments=len(exps), budget=HPO_BUDGET,
+         parallel=HPO_PARALLEL, steps=HPO_STEPS, wall_s=wall,
+         trials_per_s=n_obs / wall, service_host_cores=cores,
+         gpu_util_pct=sum(sampler.util) / max(1, len(sampler.util)),
+         gpu_util_samples=len(sampler.util),
+         device_mib_by_process=sampler.apps_mib,
+         service_peak_gb=peak / 1e9, idle_orchestrator=idle,
+         steps_per_s=sum(w["steps"] for w in workers) / wall,
+         workers=workers, **percentiles_ms(timed.lat),
+         suggests=len(timed.lat),
+         observations=[st.observations for st in statuses.values()],
+         best=[(st.best or {}).get("value") for st in statuses.values()],
+         launches=dict(launches), executor=executor,
+         cobatched=executor["lanes"] > executor["batched"],
+         pump=[{k: st.pump.get(k) for k in
+                ("hits", "misses", "coalesced", "prefilled",
+                 "batched_prefilled", "maintained", "invalidated")}
+               for st in statuses.values()],
+         refit=[st.pump.get("refit") for st in statuses.values()])
+    check(rcs == [0] * len(procs), f"worker exit codes {rcs}: "
+          + " | ".join(w["tail"] for w in workers))
+    check(not idle["threads"] and idle["allocated"] == 0,
+          f"an idle worker's Orchestrator started {idle['threads']} or "
+          f"holds {idle['allocated']} bytes on the card")
+    check(len(exps) == len(HPO_SEEDS), f"{len(exps)} experiments served")
+    ids = []
+    for e, st in statuses.items():
+        check(st.observations == HPO_BUDGET
+              and len(records[e]) == HPO_BUDGET,
+              f"{e}: {len(records[e])} observations != {HPO_BUDGET}")
+        check(st.failures == 0 and not any(r.get("failed")
+                                           for r in records[e]),
+              f"{e}: a trial failed")
+        best = (st.best or {}).get("value")
+        check(best is not None and math.isfinite(best) and best > 3.0 / 43,
+              f"{e}: best accuracy {best}")
+        check("pump_error" not in st.pump,
+              f"{e}: pump died: {st.pump.get('pump_error')}")
+        ids += [r.get("suggestion_id") for r in records[e]]
+    check(None not in ids and len(set(ids)) == len(ids)
+          and len(set(timed.ids)) == len(timed.ids),
+          "a suggestion id repeats")
+    check(all(w["failures"] == [0] for w in workers),
+          f"a worker recorded failed trials: {workers}")
+    check(executor["failed"] == 0,
+          f"executor jobs failed: {after.get('last_error')}")
+    check(launches["gp_ei"] > 0, "gp_ei never launched in the service")
+    return launches
+
+
+# ------------------------------------------------------------ phase 3d
+FLEET_SHARDS = 2
+FLEET_EXPERIMENTS = 4
+FLEET_PERIOD_S = 0.5
+#: how long a probe of a shard may take before it counts as failed: the
+#: shards share this process's interpreter lock with 60 trial threads,
+#: the pumps and the fit executor, so a live shard can take seconds to
+#: answer; a shard whose listener is shut refuses at once, so detection
+#: still takes the two periods of ``dead_after``
+FLEET_PROBE_TIMEOUT_S = 5.0
+#: share of all observations in before the failover
+FLEET_FAIL_AT = 1 / 3
+
+
+def fleet_trial(a, ctx) -> float:
+    """Phase 3's stand-in for the §4 CNN, held ``TRIAL_SECONDS``."""
+    time.sleep(TRIAL_SECONDS)
+    return objective(a)
+
+
+def fleet_exp_ids(ring, n: int):
+    """``n`` experiment ids the ring spreads evenly over its shards, so
+    that both shards own experiments before the failover."""
+    per = -(-n // len(ring))
+    ids, owned = [], {}
+    for j in range(10_000):
+        key = f"exp-fleet-{j:04d}"
+        owner = ring.owner(key)
+        if owned.get(owner, 0) < per:
+            owned[owner] = owned.get(owner, 0) + 1
+            ids.append(key)
+        if len(ids) == n:
+            return ids
+    raise RuntimeError("no spread of experiment ids found")
+
+
+def phase_fleet():
+    """``serve_fleet`` with two shards on the card in this process and
+    four ``gp`` experiments at the paper's budget and parallelism, each
+    driven by ``Orchestrator.run(fleet=URL)`` with phase 3's stand-in
+    trial; once a third of all observations are in, the listener of the
+    shard owning the most experiments is shut, and the survivor adopts
+    them from the shared store (a cold refit) and serves them on."""
+    from repro_torch.api import pipeline
+    from repro_torch.core import ExperimentConfig, Orchestrator
+    from repro_torch.core.store import Store
+    from repro_torch.fleet import serve_fleet
+    from repro_torch.kernels import gp as kgp
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-fleet-"))
+    # a fresh fit executor: the shards' admission reads its duty cycle,
+    # which an earlier phase's work would still hold above the limit
+    pipeline.fit_executor().stop()
+    srv = serve_fleet(str(tmp / "fleet"), shards=FLEET_SHARDS,
+                      period=FLEET_PERIOD_S, device="cuda",
+                      probe_timeout=FLEET_PROBE_TIMEOUT_S).start()
+    manager, store = srv.manager, Store(str(tmp / "fleet"))
+    orch = Orchestrator(str(tmp / "worker"), device="cuda")
+    exps = fleet_exp_ids(manager.ring, FLEET_EXPERIMENTS)
+    total = HPO_BUDGET * len(exps)
+
+    def observed() -> int:
+        return sum(len(store.load_observation_records(e)) for e in exps)
+
+    before = pipeline.executor_snapshot() or {}
+    kgp.gp_nll_launches.reset()
+    kgp.gp_ei_launches.reset()
+    timers = {}
+    try:
+        for i, shard in enumerate(srv.owned_shards):
+            timers[f"shard-{i}"] = TimedClient(shard.backend)
+            shard._httpd.RequestHandlerClass.backend = timers[f"shard-{i}"]
+        t0 = time.perf_counter()
+        for i, exp in enumerate(exps):
+            orch.run(ExperimentConfig(
+                name=f"fleet-cnn-{i}", budget=HPO_BUDGET,
+                parallel=HPO_PARALLEL,
+                optimizer="gp", goal="max", space=hpo_space(), seed=i),
+                trial_fn=fleet_trial, background=True, exp_id=exp,
+                fleet=srv.url)
+        owners = {e: manager.owner_of(e).shard_id for e in exps}
+        deadline = time.monotonic() + HPO_TIMEOUT_S
+        while observed() < FLEET_FAIL_AT * total:
+            check(time.monotonic() < deadline, "no third of the budget in")
+            time.sleep(0.1)
+        check(len(manager.shard_map().shards) == FLEET_SHARDS,
+              f"a shard left before the failover: {manager.events[-8:]}")
+        counts = {sid: list(owners.values()).count(sid)
+                  for sid in sorted(set(owners.values()))}
+        victim_id = max(counts, key=counts.get)
+        victim = srv.owned_shards[int(victim_id.split("-")[1])]
+        survivor_id = next(s for s in manager.shard_map().shards
+                           if s != victim_id)
+        adopted = [e for e, s in owners.items() if s == victim_id]
+        launches_before = {"gp_nll": kgp.gp_nll_launches.count,
+                           "gp_ei": kgp.gp_ei_launches.count}
+        kgp.gp_nll_launches.reset()
+        kgp.gp_ei_launches.reset()
+        obs_at_failover = observed()
+        t_fail = time.perf_counter()
+        timers[survivor_id].mark = t_fail
+        victim._httpd.shutdown()
+        victim._httpd.server_close()
+        while manager.stats["dead_shards"] < 1:
+            check(time.monotonic() < deadline, "the shard never died")
+            time.sleep(0.01)
+        t_dead = time.perf_counter()
+        for e in exps:
+            orch.wait(e, timeout=max(1.0, deadline - time.monotonic()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        alive = [e for e in exps if orch._threads[e].is_alive()]
+        launches = {"gp_nll": kgp.gp_nll_launches.count,
+                    "gp_ei": kgp.gp_ei_launches.count}
+        after = pipeline.executor_snapshot() or {}
+        executor = {k: after.get(k, 0) - before.get(k, 0) for k in
+                    ("executed", "batched", "lanes", "failed")}
+        survivor = srv.owned_shards[int(survivor_id.split("-")[1])].backend
+        statuses = {e: survivor.status(e) for e in exps}
+        records = {e: store.load_observation_records(e) for e in exps}
+        stats, shard_map = dict(manager.stats), manager.shard_map()
+        first = timers[survivor_id].first
+    finally:
+        for e in exps:
+            if e in orch._schedulers:
+                orch._schedulers[e].stop()
+            if e in orch._exp_clients:
+                orch._exp_clients[e].close()
+        srv.shutdown()
+    served_ids = [i for t in timers.values() for i in t.ids]
+    emit("fleet", shards=FLEET_SHARDS, experiments=len(exps),
+         budget=HPO_BUDGET, parallel=HPO_PARALLEL, period_s=FLEET_PERIOD_S,
+         wall_s=wall, owners=owners, victim=victim_id, adopted=adopted,
+         observations_at_failover=obs_at_failover,
+         detection_s=t_dead - t_fail,
+         adoption_s={e: first[e] - t_dead for e in adopted if e in first},
+         launches_before_failover=launches_before,
+         launches_after_failover=launches, executor=executor,
+         manager=stats, observations=[len(r) for r in records.values()],
+         best=[(st.best or {}).get("value") for st in statuses.values()],
+         **percentiles_ms([x for t in timers.values() for x in t.lat]))
+    check(not alive, f"experiments still running: {alive}")
+    check(set(owners.values()) == {f"shard-{i}"
+                                   for i in range(FLEET_SHARDS)},
+          f"experiments not on every shard before the failover: {owners}")
+    check(stats["dead_shards"] == 1, f"dead shards {stats['dead_shards']}")
+    check(victim_id not in shard_map.shards, "the victim is still mapped")
+    for e in exps:
+        ids = [r.get("suggestion_id") for r in records[e]]
+        check(len(ids) == HPO_BUDGET
+              and statuses[e].observations == HPO_BUDGET,
+              f"{e}: {len(ids)} observations != {HPO_BUDGET}")
+        check(None not in ids and len(set(ids)) == len(ids),
+              f"{e}: a duplicate observation was accepted")
+    check(len(set(served_ids)) == len(served_ids), "a suggestion id repeats")
+    check(all(e in first for e in adopted),
+          "the survivor served no adopted experiment")
+    check(launches["gp_ei"] > 0, "gp_ei never launched after the failover")
+    check(executor["failed"] == 0,
+          f"executor jobs failed: {after.get('last_error')}")
+    return {k: launches_before[k] + launches[k] for k in launches}
 
 
 # ------------------------------------------------------------- phase 4
@@ -1983,6 +2452,11 @@ def main() -> int:
         print(f"hpo: {passed} of {runs} runs passed")
         print(card_line())
         return 0 if passed == runs else 1
+    if sys.argv[1:] == ["--remote"]:
+        phase_remote()
+        phase_fleet()
+        print(card_line())
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -1994,6 +2468,8 @@ def main() -> int:
     launches = phase_service()
     phase_cnn()
     hpo = phase_hpo()
+    remote = phase_remote()
+    fleet = phase_fleet()
     summary.update(phase_lm_kernels())
     launches.update(phase_serve())
     summary.update(phase_quant_kernels())
@@ -2026,6 +2502,8 @@ def main() -> int:
     ]
     for k in kernels:
         k["hpo_launches"] = hpo.get(k["name"], 0)
+        k["remote_launches"] = remote.get(k["name"], 0)
+        k["fleet_launches"] = fleet.get(k["name"], 0)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

@@ -11,10 +11,9 @@ Two layers:
   straggler injection keyed by assignment hash;
 * fleet-level (:class:`FaultPlan`) — a deterministic, tick-indexed
   schedule of *edge* faults (partition / drop / delay between named
-  endpoints: ``worker-3 ↔ shard-1``, ``manager ↔ shard-0``), for
-  ``HTTPClient`` (``fault_gate=``), ``FleetClient`` (``fault_plan=``) and
-  the manager probe loop to thread through once the port has them
-  (ROADMAP.md §1 item 3).  Injected partitions
+  endpoints: ``worker-3 ↔ shard-1``, ``manager ↔ shard-0``), threaded
+  through ``HTTPClient`` (``fault_gate=``), ``FleetClient``
+  (``fault_plan=``) and the manager probe loop.  Injected partitions
   raise :class:`InjectedPartition` — a ``ConnectionRefusedError``
   subclass — so they traverse the *real* transport error-handling and
   retry paths, replacing wall-clock kill −9 races with reproducible

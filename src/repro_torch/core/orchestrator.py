@@ -6,16 +6,16 @@ records from the store.
 The orchestrator never holds a raw ``Optimizer`` and never reaches into
 scheduler internals: all experiment state flows through a
 ``SuggestionClient`` (see API.md) — the in-process ``LocalClient`` by
-default.  Trial lifecycle (intermediate metrics, early-stopping
+default, or an ``HTTPClient`` when ``run(..., service=URL)`` drives the
+experiment against a remote ``serve-api`` process (a ``FleetClient`` with
+``fleet=URL``).  Trial lifecycle (intermediate metrics, early-stopping
 decisions, pause/resume) is likewise service-owned: ``ctx.report`` flows
-through ``SuggestionClient.report``, so N schedulers on one experiment
+through ``SuggestionClient.report``, so N orchestrators on one experiment
 share one rung table.
 
 The orchestrator runs on the CUDA card unless ``device="cpu"`` is
 passed: its ``LocalClient`` fits the GP there, and each of its clusters
-hands that device's cards to trials through their leases.  The remote
-service and the fleet (``run(service=...)``, ``run(fleet=...)``) need the
-HTTP transport, which is not ported yet (ROADMAP.md §1 item 3).
+hands that device's cards to trials through their leases.
 """
 from __future__ import annotations
 
@@ -31,9 +31,6 @@ from repro_torch.core.experiment import ExperimentConfig
 from repro_torch.core.scheduler import Scheduler, TrialContext
 from repro_torch.core.store import Store
 from repro_torch.device import DeviceLike
-
-NOT_PORTED = ("the HTTP transport and the fleet are not ported yet "
-              "(ROADMAP.md §1 item 3)")
 
 
 def resolve_entrypoint(spec: str) -> Callable:
@@ -106,17 +103,24 @@ class Orchestrator:
             fleet: Optional[str] = None) -> str:
         """Start (or resume) an experiment.  Resuming an existing exp_id
         replays the observation log into the service's optimizer exactly
-        once.  ``service=URL`` and ``fleet=URL`` (a remote suggestion
-        service or fleet) raise ``NotImplementedError`` until the HTTP
-        transport is ported."""
-        if service or fleet:
-            raise NotImplementedError(f"run(service=, fleet=): {NOT_PORTED}")
+        once.  With ``service=URL`` the suggest/observe loop runs against
+        a remote ``serve-api`` process; with ``fleet=URL`` it runs
+        through a ``serve-fleet`` manager, which routes the experiment to
+        its owning shard (API.md §Fleet).  Trial logs and checkpoints stay
+        in this worker's local store either way."""
         if trial_fn is None:
             if not cfg.entrypoint:
                 raise ValueError("need trial_fn or cfg.entrypoint")
             trial_fn = resolve_entrypoint(cfg.entrypoint)
 
-        client = self.client
+        from repro_torch.api.http import HTTPClient
+        if fleet:
+            from repro_torch.fleet.router import FleetClient
+            client = FleetClient(fleet)
+        elif service:
+            client = HTTPClient(service)
+        else:
+            client = self.client
         created = client.create_experiment(
             CreateExperiment(config=cfg.to_json(), exp_id=exp_id))
         exp_id = created.exp_id

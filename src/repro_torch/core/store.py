@@ -34,6 +34,17 @@ from typing import Any, Dict, Iterator, List, Optional, TextIO, Tuple
 from repro_torch.core.experiment import ExperimentConfig
 from repro_torch.core.suggest.base import Observation
 
+
+def _tmp_path(p: pathlib.Path) -> pathlib.Path:
+    """The temporary file one writer fills before ``os.replace`` onto
+    ``p``: unique to the process and thread, because several ``Store``
+    objects (fleet shards, other processes) share a root, each with its
+    own lock, and two writers filling one shared temporary file at once
+    would replace ``p`` with a torn mix of both."""
+    return p.with_name(f"{p.name}.{os.getpid()}.{threading.get_ident()}"
+                       ".tmp")
+
+
 DEFAULT_ROOT = ".orchestrate"
 
 LOG_HANDLE_CACHE = 64           # max simultaneously-open trial log files
@@ -103,7 +114,7 @@ class Store:
 
     def set_status(self, exp_id: str, status: Dict[str, Any]) -> None:
         p = self.exp_dir(exp_id) / "status.json"
-        tmp = p.with_suffix(".tmp")
+        tmp = _tmp_path(p)
         text = json.dumps(status, indent=1)
         with self._lock:
             tmp.write_text(text)
@@ -187,7 +198,7 @@ class Store:
             if epoch < cur:
                 raise FencedError(exp_id, epoch, cur, cur_owner)
             p = self.fence_path(exp_id)
-            tmp = p.with_suffix(".tmp")
+            tmp = _tmp_path(p)
             text = json.dumps({"epoch": list(epoch), "owner": owner,
                                "time": time.time()})
             tmp.write_text(text)
@@ -222,7 +233,7 @@ class Store:
 
     def write_fleet_state(self, name: str, state: Dict[str, Any]) -> None:
         p = self.fleet_path(f"{name}.json")
-        tmp = p.with_suffix(".tmp")
+        tmp = _tmp_path(p)
         with self._lock:
             tmp.write_text(json.dumps(state, indent=1))
             os.replace(tmp, p)  # atomic

@@ -187,7 +187,9 @@ class BayesOpt(Optimizer):
                  warm_fit_steps: int = 40, refit_every: int = 4,
                  adaptive: bool = True, device=None):
         super().__init__(space, seed)
-        self.device = resolve(device)       # where the GP tensors live
+        # where the GP tensors live; the CUDA linear algebra is loaded
+        # here, before this optimizer's pump or fits run on other threads
+        self.device = resolve(device, linalg=True)
         self.n_init = n_init
         self.n_candidates = candidates
         self.fit_steps = fit_steps

@@ -100,7 +100,7 @@ def _device(device, like=None) -> torch.device:
     """An explicit ``device`` wins; else follow ``like``'s tensor; else
     the default (CUDA) device."""
     if device is not None or not isinstance(like, torch.Tensor):
-        return resolve(device)
+        return resolve(device, linalg=True)
     return like.device
 
 
@@ -119,7 +119,7 @@ def _np(a) -> np.ndarray:
 
 def params_from_numpy(log_ls, log_amp, log_noise, device=None) -> GPParams:
     """The port's ``GPParams`` from the reference's leaves as arrays."""
-    dev = resolve(device)
+    dev = resolve(device, linalg=True)
     return GPParams(_leaf(log_ls, dev), _leaf(log_amp, dev),
                     _leaf(log_noise, dev))
 
@@ -128,7 +128,7 @@ def posterior_from_numpy(fields: dict, device=None) -> GPPosterior:
     """The port's ``GPPosterior`` from the reference's leaves as arrays:
     ``fields`` maps each ``GPPosterior`` field to an array, and
     ``params`` to a (log_ls, log_amp, log_noise) sequence or dict."""
-    dev = resolve(device)
+    dev = resolve(device, linalg=True)
     p = fields["params"]
     if isinstance(p, dict):
         p = (p["log_ls"], p["log_amp"], p["log_noise"])
@@ -271,7 +271,7 @@ def batched_fit(items, steps=150, bucket: Optional[int] = None,
     if len(items) > FIT_LANES_MAX:
         raise ValueError(f"{len(items)} lanes > FIT_LANES_MAX "
                          f"({FIT_LANES_MAX}); split the batch")
-    dev = resolve(device)
+    dev = resolve(device, linalg=True)
     b = bucket if bucket is not None else bucket_size(
         max(np.asarray(x).shape[0] for x, _, _ in items))
     b = int(b)
@@ -343,7 +343,7 @@ def fit_gp(x: np.ndarray, y: np.ndarray, steps: int = 150,
     ``bucket`` pads the training set to a static shape (default: smallest
     power-of-two bucket); ``params0`` warm-starts Adam from a previous fit.
     """
-    dev = resolve(device)
+    dev = resolve(device, linalg=True)
     x = np.asarray(x, np.float64)
     y_raw = np.asarray(y, np.float64)
     n, d = x.shape
@@ -429,7 +429,7 @@ def prewarm_bucket(d: int, bucket: int, fit_steps=(), k_pads=(),
     launches no kernel, so the launch counters see only real work.  The
     signature is the reference's; ``fit_lanes`` sizes the allocation and
     the other shape arguments are not needed here."""
-    dev = resolve(device)
+    dev = resolve(device, linalg=True)
     if dev.type == "cuda":
         _kbuild.build_all()
     lanes = max([lane_pad(int(k)) for k in fit_lanes] or [1])

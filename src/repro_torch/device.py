@@ -39,10 +39,13 @@ def _load_cuda_linalg(device: torch.device) -> None:
         _LINALG_READY.add(device)
 
 
-def resolve(device: DeviceLike = None) -> torch.device:
+def resolve(device: DeviceLike = None, linalg: bool = False
+            ) -> torch.device:
     """``None`` -> ``torch.device("cuda")`` (RuntimeError when CUDA is
-    absent); anything else -> ``torch.device(device)``.  A CUDA device
-    comes back with PyTorch's CUDA linear algebra loaded."""
+    absent); anything else -> ``torch.device(device)``.  Resolving does
+    no work on the card; with ``linalg=True`` (the GP's callers) a CUDA
+    device comes back with PyTorch's CUDA linear algebra loaded, which
+    allocates its workspaces there."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -51,6 +54,6 @@ def resolve(device: DeviceLike = None) -> torch.device:
                 "paths on the CPU")
         device = "cuda"
     dev = torch.device(device)
-    if dev.type == "cuda":
+    if linalg and dev.type == "cuda":
         _load_cuda_linalg(dev)
     return dev

@@ -79,6 +79,53 @@ def test_local_client_default_device_needs_cuda(monkeypatch):
     assert LocalClient(tempfile.mkdtemp(), device="cpu").device.type == "cpu"
 
 
+def test_serve_default_device_needs_cuda(monkeypatch):
+    """``serve_api`` and ``serve_fleet`` fit on the card by default and
+    resolve it when they are built, before any request; ``device="cpu"``
+    is the explicit way onto the CPU."""
+    from repro_torch.api.http import serve_api
+    from repro_torch.fleet import serve_fleet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_api(tempfile.mkdtemp())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_fleet(tempfile.mkdtemp(), shards=1)
+    server = serve_api(tempfile.mkdtemp(), device="cpu").start()
+    try:
+        assert server.backend.device.type == "cpu"
+    finally:
+        server.shutdown()
+    fleet = serve_fleet(tempfile.mkdtemp(), shards=1, device="cpu").start()
+    try:
+        assert fleet.owned_shards[0].backend.device.type == "cpu"
+    finally:
+        fleet.shutdown()
+
+
+def test_cuda_linalg_is_loaded_only_for_the_gp(monkeypatch, tmp_path):
+    """Resolving the card does no work on it: an idle worker's
+    ``Orchestrator`` (whose ``LocalClient`` a remote run never uses)
+    must hold nothing there.  The GP's callers and ``serve_api`` load
+    PyTorch's CUDA linear algebra, once, before any thread of theirs."""
+    import repro_torch.device as device_mod
+    from repro_torch.api.http import serve_api
+    from repro_torch.core import Orchestrator
+    loaded = []
+    monkeypatch.setattr(device_mod, "_load_cuda_linalg", loaded.append)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert device_mod.resolve() == torch.device("cuda")
+    orch = Orchestrator(str(tmp_path / "worker"))
+    assert orch.client.device.type == "cuda" and loaded == []
+    assert device_mod.resolve(linalg=True) == torch.device("cuda")
+    assert loaded == [torch.device("cuda")]
+    server = serve_api(str(tmp_path / "service"))
+    try:
+        assert loaded == [torch.device("cuda")] * 2
+    finally:
+        server._httpd.server_close()
+        server.backend.close()
+
+
 def test_chip_smoke_refuses_to_run_without_cuda():
     """``chip_smoke.py`` exits non-zero and prints no result without a
     card, and in a directory holding nothing else of the repo."""
