@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: the GP suggestion
 service, the paper's §4 HPO loop (in process, over HTTP from worker
 processes, and through a sharded fleet that loses a shard), the LM
-server and the error-feedback int8 all-reduce.
+server, the error-feedback int8 all-reduce, and LM training (one model,
+and a population of trials in one program).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -135,6 +136,38 @@ script exits non-zero and prints no result):
    rank's launches, its new error bit for bit, its reduced tensor within
    4 float32 ulps of the float64 mean of the ranks' sent tensors.
 
+8. LM training (run right after phase 1, while the card holds nothing
+   else: the population needs ~65 GB of it; each part first frees what
+   was left and reports the card's memory, as the later phases do) —
+   (a) the two backward kernels against their plain versions:
+   ``flash_attention_bwd`` at the train shape (B 1, S 3000, H 10, K 1,
+   D 256, window 2048, no softcap) in bf16 and f32, at S = 1, 65 and
+   1000, grouped-query (H 4, K 2, D 64), windows 0 and 32, softcap 30
+   (q, k of std 4 so the cap bends), D 16 and 128 and non-causal, held
+   element by element to the plain float32 backward of the same inputs
+   (``FLASH_TOL`` and a floor, ``bwd_excess``), the kernel's lse within
+   1e-4 of the plain one, and planted faults (the oldest key of the
+   window dropped, the softcap dropped, dK/dV from one query head of a
+   group) failing that limit; ``rglru_scan_bwd`` at (1, 3000, 2560),
+   S = 1, 65 and R = 999 within 1e-5 of the largest gradient, a plain
+   backward with no carry between tiles failing it; each with its time
+   by CUDA events, its bound, the plain version's time and, for
+   attention, SDPA's backward (band mask, ``enable_gqa``).
+   (b) ``launch.train.train("recurrentgemma-2b", reduced=False, batch=1,
+   seq=3000, steps=4, warmup=2)``: all 26 layers, bf16 compute, f32
+   masters, remat "full"; exactly 16 ``flash_attention``, 8
+   ``flash_attention_bwd``, 36 ``rglru_scan`` and 18 ``rglru_scan_bwd``
+   launches a step (counts read around each step), finite losses and
+   gradient norms; each step's ms, tokens a second, peak memory (with
+   ``--train``, the last step under torch.profiler).  (c) one step at full width and depth 3:
+   the kernel path's loss and per-leaf gradients against the plain bf16
+   path and the float32 model (``GRAD_FACTOR``, ``LOSS_FACTOR``).  (d)
+   ``PopulationTrainer``: 3 trials at full width, depth 3, batch 1 x
+   1024, each with its own lr, weight decay and seed, 4 steps: one launch
+   of each kernel a layer a step for all trials, trial-steps a second,
+   peak memory; then each trial alone through the same step unbatched,
+   every loss within ``POP_TOL`` of the population's.
+
 7. device times — ``gp_ei`` at every case of phase 2 and ``rglru_scan``
    at every case of phase 4 again, on the same inputs, by torch.profiler:
    the kernels' own time, which at small shapes the CUDA-event time of a
@@ -160,6 +193,11 @@ line, how many passed and the card: how often the refits co-batch.
 
 runs the remote topology and the fleet failover (the kernels build at
 their first call in the service) and prints their lines and the card.
+
+    python3 chip_smoke.py --train          # phases 1 and 8 alone
+
+builds the kernels, runs LM training's checks and prints their lines and
+the card.
 """
 from __future__ import annotations
 
@@ -1824,7 +1862,7 @@ PROFILED_STEPS = 8
 #: the port's own kernels, by a part of their names, which a device
 #: profile reports whether or not they rank in its top
 OWN_KERNELS = ("flash_", "rglru_kernel", "ei_kernel", "inv_kernel",
-               "nll_", "quant")
+               "nll_", "quant", "bwd::", "rglru_bwd")
 
 
 def device_profile(run, top: int = 12):
@@ -2433,6 +2471,475 @@ def phase_device_times():
         del la, b
 
 
+# ------------------------------------------------------------- phase 8
+#: (name, B, S, H, K, D, causal, window, softcap, dtype) of phase 8a:
+#: the first two are the train shape of recurrentgemma-2b's local
+#: attention (batch 1 x 3000, window 2048, no attention softcap)
+BWD_CASES = (
+    ("train", 1, 3000, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
+    ("train_f32", 1, 3000, 10, 1, 256, True, 2048, 0.0, "float32"),
+    ("s1", 2, 1, 4, 2, 64, True, 0, 0.0, "bfloat16"),
+    ("s65", 2, 65, 4, 2, 64, True, 32, 0.0, "bfloat16"),
+    ("s1000_f32", 1, 1000, 4, 2, 64, True, 0, 0.0, "float32"),
+    ("gqa_window32", 2, 1000, 4, 2, 64, True, 32, 0.0, "bfloat16"),
+    ("softcap30", 1, 1000, 4, 2, 128, True, 0, 30.0, "bfloat16"),
+    ("softcap30_f32", 1, 1000, 4, 2, 128, True, 0, 30.0, "float32"),
+    ("d16", 2, 1000, 4, 2, 16, True, 0, 0.0, "bfloat16"),
+    ("d128_window_f32", 1, 1000, 8, 2, 128, True, 256, 0.0, "float32"),
+    ("noncausal_d16_f32", 2, 300, 4, 4, 16, False, 0, 0.0, "float32"),
+)
+#: std of q and k under a softcap: scores of std 16 reach where the cap
+#: bends (tanh(16/30) = 0.49, its derivative 0.76), so dropping the
+#: derivative is a fault the limit can see; unit inputs leave the cap
+#: nearly linear there (a derivative of 0.999)
+CAP_STD = 4.0
+#: the backward's absolute floor, a share of the largest gradient's rms
+#: (bwd_excess):
+#: dP = dO.V and D = dO.O are D-term float32 sums of about sqrt(D) at unit
+#: inputs (16 at D = 256), summed in other orders, so where they cancel
+#: (dS -> 0) 2^-24 * 16 * 16 ~ 1.5e-5 is left, carried into dq by K / 16:
+#: ~1e-5 of dq's rms at the train shape (on the H100: 1.2e-5 in the first
+#: query row, the kernel 8.4e-7 from the plain float32 version there)
+BWD_FLOOR = 1e-4
+#: |lse_kernel - lse_plain| limit: both are float32 log-sum-exps of the
+#: same float32 scores, summed in other orders
+LSE_LIMIT = 1e-4
+#: max |sdpa grad - plain| / max |plain| of the library yardstick, which
+#: in bf16 rounds P and dS before its products: a sanity check that it
+#: computes the same function, not a limit on the port
+SDPA_BWD_LIMIT = {"float32": 1e-3, "bfloat16": 1e-1}
+#: (name, B, S, R) of the scan's backward; the first is the train shape
+SCAN_BWD_CASES = (("train", 1, 3000, 2560), ("s1", 2, 1, 1000),
+                  ("s65", 3, 65, 1000), ("r999", 2, 129, 999))
+#: phase 8b: recurrentgemma-2b at its published widths, trained
+TRAIN = dict(arch="recurrentgemma-2b", reduced=False, batch=1, seq=3000,
+             steps=4, warmup=2)
+#: launches a train step: 8 local-attention and 18 RG-LRU layers, each
+#: forward run twice under remat "full" (forward, then recomputed)
+TRAIN_LAUNCHES = {"flash_attention": 16, "flash_attention_bwd": 8,
+                  "rglru_scan": 36, "rglru_scan_bwd": 18}
+#: phase 8c: one step at full width and depth 3, one (R, R, A) group; how
+#: much further than the plain bf16 path the kernel path may be from the
+#: float32 model, per gradient leaf by relative norm, and on the loss
+#: (with a floor of 1e-3, about one bf16 rounding of a logit averaged
+#: over 3000 tokens, as a scalar's distance can be near 0 by chance)
+HOLD_DEPTH = 3
+GRAD_FACTOR = 1.5
+LOSS_FACTOR = 2.0
+LOSS_FLOOR = 1e-3
+HOLD_LAUNCHES = {"flash_attention": 2, "flash_attention_bwd": 1,
+                 "rglru_scan": 4, "rglru_scan_bwd": 2}
+#: phase 8d: the population, P = 3 trials at full width and depth 3,
+#: batch 1 x 1024 each, 4 steps, remat "none" (torch.utils.checkpoint
+#: does not compose with torch.func.grad); one launch a layer a step
+POP_TRIALS = ({"lr": 1e-4, "weight_decay": 0.0, "seed": 0},
+              {"lr": 3e-4, "weight_decay": 0.1, "seed": 1},
+              {"lr": 1e-3, "weight_decay": 0.01, "seed": 2})
+POP_SEQ = 1024
+POP_STEPS = 4
+POP_LAUNCHES = {"flash_attention": 1, "flash_attention_bwd": 1,
+                "rglru_scan": 2, "rglru_scan_bwd": 2}
+#: |population loss - single-trial loss| limit at each step: bf16
+#: compute, and the trials' products batched (one bmm for three) where a
+#: single trial's are not, so the two round differently; 1.6e-3 of the
+#: initial ln(256000) = 12.45, well under one bf16 step (2^-8) of it
+POP_TOL = 2e-2
+
+
+def bwd_excess(got, want32, dtype: str) -> float:
+    """The largest ratio, over (dq, dk, dv), of |got - ref32| to the
+    element-wise limit of ``FLASH_TOL`` plus a floor of ``BWD_FLOOR``
+    times the largest rms of the three: a gradient row can be 0 where its
+    terms are not (the first query's dq: dP - D cancels exactly, p = 1;
+    at S = 1 all of dq and dk), and float32 sums of those terms in
+    another order leave an error there that no share of the row's own
+    size bounds."""
+    rtol, c = FLASH_TOL[dtype]
+    floor = BWD_FLOOR * max(float(w.float().square().mean().sqrt())
+                            for w in want32)
+    worst = 0.0
+    for g, w in zip(got, want32):
+        w = w.float()
+        rms = w.square().mean(-1, keepdim=True).sqrt()
+        lim = rtol * w.abs() + c * rms + floor
+        worst = max(worst, float(((g.float() - w).abs()
+                                  / lim.clamp(min=1e-30)).max()))
+    return worst
+
+
+def flash_bwd_work(B, S, H, K, D, causal, window, elem):
+    """(FLOPs, bytes) the attention backward needs: 10·D multiply-adds a
+    visible pair a head (S, dP, dV, dK, dQ), 2.5x the forward's; q, k, v,
+    o, dO and lse read once, dq, dk, dv written once."""
+    flops = 2 * 5 * D * B * H * visible_pairs(S, S, causal, window)
+    nbytes = elem * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S
+    return flops, nbytes
+
+
+def lm_counters():
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import rglru_scan as krg
+    return {"flash_attention": kfa.flash_attention_launches,
+            "flash_attention_bwd": kfa.flash_attention_bwd_launches,
+            "rglru_scan": krg.rglru_scan_launches,
+            "rglru_scan_bwd": krg.rglru_scan_bwd_launches}
+
+
+def free_card(where: str) -> float:
+    """Drop what earlier phases left in the allocator's cache -> GB still
+    allocated; report it beside what the card has free (memory outside
+    PyTorch's allocator, or another process's, shows as the difference)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    allocated = torch.cuda.memory_allocated() / 1e9
+    emit("card_memory", at=where, allocated_gb=allocated,
+         reserved_gb=torch.cuda.memory_reserved() / 1e9,
+         free_gb=free / 1e9, total_gb=total / 1e9)
+    return allocated
+
+
+def phase_train_kernels():
+    """8a: the two backward kernels against their plain versions."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as krg
+    dev = torch.device("cuda", 0)
+    free_card("train_kernels")
+    gen = torch.Generator(device=dev)
+    summary = {}
+    for (name, B, S, H, K, D, causal, window, cap, dtype) in BWD_CASES:
+        gen.manual_seed(S + D + H)
+        dt = getattr(torch, dtype)
+        std = CAP_STD if cap else 1.0
+        q = (std * torch.randn((B, S, H, D), generator=gen, device=dev)
+             ).to(dt)
+        k = (std * torch.randn((B, S, K, D), generator=gen, device=dev)
+             ).to(dt)
+        v = torch.randn((B, S, K, D), generator=gen, device=dev).to(dt)
+        do = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        o, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+        _, lse_plain = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        lse_err = float((lse - lse_plain).abs().max())
+        check(lse_err <= LSE_LIMIT, f"lse {name}: {lse_err} > {LSE_LIMIT}")
+        got = kfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+        want32 = ref.flash_attention_bwd_ref(*f32((q, k, v, o)), lse,
+                                             do.float(), **kw)
+        excess = bwd_excess(got, want32, dtype)
+        abs_err = max(float((g.float() - w).abs().max())
+                      for g, w in zip(got, want32))
+        check(math.isfinite(excess) and excess <= 1.0,
+              f"flash_attention_bwd {name}: {excess} x its limit")
+        planted = {}
+        faults = {}
+        if name == "train":
+            faults["oldest_key_dropped"] = lambda: ref.flash_attention_bwd_ref(
+                *f32((q, k, v, o)), lse, do.float(), causal=causal,
+                window=window - 1, softcap=cap)
+        if name == "softcap30":
+            faults["softcap_dropped"] = lambda: ref.flash_attention_bwd_ref(
+                *f32((q, k, v, o)), lse, do.float(), causal=causal,
+                window=window, softcap=0.0)
+        if name == "gqa_window32":
+            G = H // K
+            def one_head():
+                # dK and dV from the first query head of each group only
+                _, dk1, dv1 = ref.flash_attention_bwd_ref(
+                    *f32((q[:, :, ::G], k, v, o[:, :, ::G])),
+                    lse[:, ::G], do[:, :, ::G].float(), **kw)
+                return want32[0], dk1, dv1
+            faults["gqa_heads_missing"] = one_head
+        for fault, run in faults.items():
+            planted[fault] = bwd_excess(run(), want32, dtype)
+            check(planted[fault] > 1.0,
+                  f"planted fault {fault} passes: {planted[fault]}")
+        lib_ms = lib_err = None
+        if not cap:  # SDPA has no softcap
+            mask = band_mask(S, S, causal, window, dev)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(D),
+                enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                out, (qt, kt, vt), dot, retain_graph=True)
+            lib_err = max(rel_err(g.transpose(1, 2).float(), w)
+                          for g, w in zip(lib(), want32))
+            check(lib_err <= SDPA_BWD_LIMIT[dtype],
+                  f"sdpa backward {name} disagrees: {lib_err}")
+            lib_ms = time_ms(lib)
+            del out, qt, kt, vt
+        del want32
+        ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     **kw))
+        plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, **kw))
+        flops, nbytes = flash_bwd_work(B, S, H, K, D, causal, window,
+                                       q.element_size())
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype ==
+                             "bfloat16" else PEAK_F32_FLOPS)
+        emit("flash_bwd_case", case=name, B=B, S=S, H=H, K=K, D=D,
+             causal=causal, window=window, softcap=cap, dtype=dtype,
+             tol=FLASH_TOL[dtype], excess=excess, planted_excess=planted,
+             lse_abs_err=lse_err, max_abs_err=abs_err, ms=ms,
+             plain_ms=plain_ms, sdpa_ms=lib_ms, sdpa_rel_err=lib_err,
+             bound_ms=bound, bound_by=by, gflop=flops / 1e9,
+             mbytes=nbytes / 1e6)
+        if name == "train":
+            summary["flash_attention_bwd"] = dict(
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del q, k, v, o, lse, do, got
+        free_card("bwd_case")
+    for name, B, S, R in SCAN_BWD_CASES:
+        gen.manual_seed(S + R + 1)
+        la = -0.5 * torch.rand((B, S, R), generator=gen, device=dev)
+        b = torch.randn((B, S, R), generator=gen, device=dev)
+        dh = torch.randn((B, S, R), generator=gen, device=dev)
+        h = krg.rglru_scan(la, b)
+        got = krg.rglru_scan_bwd(la, h, dh)
+        torch.cuda.synchronize()
+        want = ref.rglru_scan_bwd_ref(la, h, dh)
+        errs, lims = [], []
+        for g, w in zip(got, want):
+            errs.append(float((g - w).abs().max()))
+            lims.append(SCAN_LIMIT * max(1.0, float(w.abs().max())))
+        check(all(math.isfinite(e) and e <= lim for e, lim in
+                  zip(errs, lims)),
+              f"rglru_scan_bwd {name}: {errs} > {lims}")
+        planted = None
+        if name == "train":
+            # each time tile scanned alone: no carry from the tile after
+            tiles = [ref.rglru_scan_bwd_ref(la[:, t:t + krg.TIME_TILE],
+                                            h[:, t:t + krg.TIME_TILE],
+                                            dh[:, t:t + krg.TIME_TILE])
+                     for t in range(0, S, krg.TIME_TILE)]
+            planted = max(float((torch.cat([tl[i] for tl in tiles], 1)
+                                 - want[i]).abs().max()) / lims[i]
+                          for i in range(2))
+            check(planted > 1.0,
+                  f"planted fault (no carry between tiles) passes: {planted}")
+            del tiles
+        ms = time_ms(lambda: krg.rglru_scan_bwd(la, h, dh))
+        plain_ms = time_ms(lambda: ref.rglru_scan_bwd_ref(la, h, dh))
+        bound, by = bound_ms(6 * B * S * R, 20 * B * S * R)
+        emit("rglru_bwd_case", case=name, B=B, S=S, R=R, limits=lims,
+             max_abs_err=errs, planted_no_carry_excess=planted, ms=ms,
+             plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+             library_ms=None)
+        if name == "train":
+            summary["rglru_scan_bwd"] = dict(
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+        del la, b, dh, h, got, want
+    free_card("scan_bwd_cases_done")
+    return summary
+
+
+def phase_train(trace: bool = False):
+    """8b: ``launch.train.train`` on recurrentgemma-2b at full width,
+    spied on at its step function for each step's time, launches, loss
+    and gradient norm; with ``trace`` (``--train``) its last step under
+    torch.profiler, which the whole script leaves to its end (a profiler
+    started early slows the host-bound phases after it)."""
+    from repro_torch.launch import train as tr
+    counters = lm_counters()
+    counts = lambda: {n: c.count for n, c in counters.items()}  # noqa: E731
+    steps = []
+    make = tr.make_accum_train_step
+
+    def spy_make(*args, **kwargs):
+        model, fn = make(*args, **kwargs)
+
+        def timed(state, batch):
+            out = {}
+
+            def run():
+                out["r"] = fn(state, batch)
+            torch.cuda.synchronize()
+            before = counts()
+            traced = trace and len(steps) == TRAIN["steps"] - 1
+            t0 = time.perf_counter()
+            prof = device_profile(run) if traced else run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            state2, metrics = out["r"]
+            steps.append(dict(
+                ms=ms, traced=traced,
+                launches={n: c - before[n] for n, c in counts().items()},
+                loss=float(metrics["loss"]),
+                grad_norm=float(metrics["grad_norm"]),
+                lr=float(metrics["lr"])))
+            if traced:
+                emit("train_profile", **prof)
+            return state2, metrics
+        return model, timed
+
+    resident = free_card("train")
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    with patched(tr, make_accum_train_step=spy_make):
+        last = tr.train(TRAIN["arch"], TRAIN["steps"], TRAIN["batch"],
+                        TRAIN["seq"], reduced=TRAIN["reduced"],
+                        warmup=TRAIN["warmup"], seed=0, log_every=1,
+                        log=lines.append)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(len(steps) == TRAIN["steps"], f"{len(steps)} train steps")
+    for i, st in enumerate(steps):
+        check(st["launches"] == TRAIN_LAUNCHES,
+              f"train step {i} launches {st['launches']}")
+        check(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]),
+              f"train step {i}: loss {st['loss']}, grad norm "
+              f"{st['grad_norm']}")
+    check(math.isfinite(last), f"train returned {last}")
+    warm = [st["ms"] for st in steps[1:] if not st["traced"]]
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    emit("train", **TRAIN, wall_s=wall, step_ms=[st["ms"] for st in steps],
+         warm_ms=warm, tokens_per_s=tokens / (sum(warm) / len(warm) / 1e3),
+         peak_memory_gb=peak, resident_before_gb=resident,
+         losses=[st["loss"] for st in steps],
+         grad_norms=[st["grad_norm"] for st in steps],
+         lrs=[st["lr"] for st in steps], launches=launches,
+         step_launches=steps[0]["launches"], log=lines)
+    return launches
+
+
+def phase_train_parity():
+    """8c: one step's loss and gradients at full width, depth 3, through
+    the kernels, the plain bf16 path and the plain float32 path."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as S
+    from repro_torch.models import LM
+    from repro_torch.models.model import tensors
+    dev = torch.device("cuda", 0)
+    free_card("train_parity")
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=HOLD_DEPTH)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = LM(cfg).init(seed=1, device=dev)
+    batch = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+        global_batch=TRAIN["batch"], seed=0)).batch_at(0)
+    batch = {k: torch.as_tensor(v, device=dev).long()
+             for k, v in batch.items()}
+    counters = lm_counters()
+    for c in counters.values():
+        c.reset()
+    loss_k, _, g_k = S.loss_and_grads(
+        LM(cfg), S.cast_params(params, cfg.compute_dtype), batch)
+    torch.cuda.synchronize()
+    launches = {n: c.count for n, c in counters.items()}
+    check(launches == HOLD_LAUNCHES, f"depth-3 step launches {launches}")
+    with patched(ops, flash_attention=ref.flash_attention_ref,
+                 rglru_scan=ref.rglru_scan_ref):
+        loss_p, _, g_p = S.loss_and_grads(
+            LM(cfg), S.cast_params(params, cfg.compute_dtype), batch)
+        loss_32, _, g_32 = S.loss_and_grads(LM(cfg32), params, batch)
+    check(all(c.count == launches[n] for n, c in counters.items()),
+          "the plain runs launched kernels")
+    rel = lambda a, b: float(  # noqa: E731
+        torch.linalg.vector_norm(a.float() - b.float())
+        / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+    leaves = [(rel(a, c), rel(b, c)) for a, b, c in
+              zip(tensors(g_k), tensors(g_p), tensors(g_32))]
+    for i, (ke, pe) in enumerate(leaves):
+        check(math.isfinite(ke) and ke <= GRAD_FACTOR * pe,
+              f"gradient leaf {i}: |kernel - f32| {ke} > {GRAD_FACTOR} x "
+              f"|plain - f32| {pe}")
+    lk, lp, l32 = float(loss_k), float(loss_p), float(loss_32)
+    check(abs(lk - l32) <= LOSS_FACTOR * max(abs(lp - l32), LOSS_FLOOR),
+          f"loss: kernel {lk}, plain {lp}, f32 {l32}")
+    emit("train_parity", depth=HOLD_DEPTH, seq=TRAIN["seq"],
+         loss_kernel=lk, loss_plain=lp, loss_f32=l32, launches=launches,
+         grad_rel_err_kernel_vs_f32=[ke for ke, _ in leaves],
+         grad_rel_err_plain_vs_f32=[pe for _, pe in leaves],
+         worst_leaf_ratio=max(ke / max(pe, 1e-30) for ke, pe in leaves))
+
+
+def phase_population():
+    """8d: ``PopulationTrainer`` with three trials at full width, depth 3,
+    then each trial alone through the same single-trial step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import vmap_trials as vt
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.optim import AdamWConfig, adamw_init
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=HOLD_DEPTH,
+                              remat="none")
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=POP_SEQ, global_batch=1,
+                                    seed=0)).batch_at
+    counters = lm_counters()
+    counts = lambda: {n: c.count for n, c in counters.items()}  # noqa: E731
+    resident = free_card("population")
+    torch.cuda.reset_peak_memory_stats()
+    trainer = vt.PopulationTrainer(cfg, AdamWConfig(), device=dev)
+    marks = []
+
+    def report(t, losses):
+        marks.append((time.perf_counter(), counts(), losses.tolist()))
+
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    marks.append((time.perf_counter(), counts(), None))
+    objective = trainer.train(list(POP_TRIALS), data, POP_STEPS,
+                              eval_last=POP_STEPS, report=report)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_launches = [{n: c - a[1][n] for n, c in b[1].items()}
+                     for a, b in zip(marks, marks[1:])]
+    step_s = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    for i, sl in enumerate(step_launches):
+        check(sl == POP_LAUNCHES, f"population step {i} launches {sl}")
+    pop = [m[2] for m in marks[1:]]
+    check(all(math.isfinite(x) for row in pop for x in row),
+          f"population losses {pop}")
+    del trainer
+    free_card("population_done")
+    # each trial alone: the same step without vmap, on its own state
+    model, one_step = vt.make_trial_step(cfg, AdamWConfig())
+    seq = []
+    for a in POP_TRIALS:
+        params = model.init(a["seed"], dev)
+        state = {"params": params, "opt": adamw_init(params)}
+        lr = torch.tensor(a["lr"], device=dev)
+        wd = torch.tensor(a["weight_decay"], device=dev)
+        losses = []
+        for t in range(POP_STEPS):
+            batch = {k: torch.as_tensor(v, device=dev).long()
+                     for k, v in data(t).items()}
+            state, metrics = one_step(state, batch, lr, wd)
+            losses.append(float(metrics["loss"]))
+        seq.append(losses)
+        del state, params
+        free_card("single_trial")
+    diff = max(abs(pop[t][i] - seq[i][t]) for i in range(len(POP_TRIALS))
+               for t in range(POP_STEPS))
+    check(diff <= POP_TOL,
+          f"population vs single trials: {diff} > {POP_TOL}")
+    warm = step_s[1:]
+    emit("population", trials=len(POP_TRIALS), depth=HOLD_DEPTH,
+         seq=POP_SEQ, steps=POP_STEPS, step_s=step_s,
+         trial_steps_per_s=len(POP_TRIALS) * len(warm) / sum(warm),
+         peak_memory_gb=peak, resident_before_gb=resident,
+         losses=pop, single_trial_losses=seq, max_abs_diff=diff,
+         objective=objective.tolist(), launches=launches,
+         step_launches=step_launches[0])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2457,24 +2964,47 @@ def main() -> int:
         phase_fleet()
         print(card_line())
         return 0
+    if sys.argv[1:] == ["--train"]:
+        phase_card()
+        phase_train_kernels()
+        phase_train(trace=True)
+        phase_train_parity()
+        phase_population()
+        print(card_line())
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
     card = phase_card()
-    summary = phase_kernels()
+    # phase 8 first: the population needs ~65 GB of an 80 GB card, and
+    # the later phases leave ~12 GB of it held outside PyTorch's
+    # allocator (card_memory lines) and the allocator fragmented
+    summary = phase_train_kernels()
+    train = phase_train()
+    phase_train_parity()
+    population = phase_population()
+    free_card("after phase 8")
+    summary.update(phase_kernels())
     phase_gp_parity()
     phase_gp_host()
     launches = phase_service()
+    free_card("after phase 3")
     phase_cnn()
     hpo = phase_hpo()
+    free_card("after phase 3b")
     remote = phase_remote()
+    free_card("after phase 3c")
     fleet = phase_fleet()
+    free_card("after phase 3d")
     summary.update(phase_lm_kernels())
     launches.update(phase_serve())
+    free_card("after phase 5")
     summary.update(phase_quant_kernels())
     launches.update(phase_compress())
+    free_card("after phase 6b")
     phase_compress_ranks()
+    free_card("after phase 6c")
     phase_device_times()
     kernels = [
         dict(name="gp_nll", route="cuda",
@@ -2499,11 +3029,24 @@ def main() -> int:
              replaces="src/repro/kernels/int8_quant.py:28",
              launches=launches["int8_quantize"],
              **summary["int8_quantize"]),
+        # the gradients of the two LM kernels: the Pallas kernels have no
+        # backward, so each replaces its forward's TPU kernel
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:97",
+             launches=train["flash_attention_bwd"],
+             **summary["flash_attention_bwd"]),
+        dict(name="rglru_scan_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan.py:40",
+             launches=train["rglru_scan_bwd"], **summary["rglru_scan_bwd"]),
     ]
     for k in kernels:
         k["hpo_launches"] = hpo.get(k["name"], 0)
         k["remote_launches"] = remote.get(k["name"], 0)
         k["fleet_launches"] = fleet.get(k["name"], 0)
+        k["train_launches"] = train.get(k["name"], 0)
+        k["population_launches"] = population.get(k["name"], 0)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

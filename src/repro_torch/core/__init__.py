@@ -1,7 +1,6 @@
 # The paper's primary contribution — parallel hyperparameter-optimization
 # infrastructure: spaces + suggestion service + cluster + scheduler +
-# lifecycle + monitoring.  (Population execution, ``vmap_trials``, is not
-# ported yet.)
+# lifecycle + monitoring; population execution (``vmap_trials``).
 from repro_torch.core.cluster import Cluster, ClusterConfig, PoolConfig
 from repro_torch.core.experiment import ExperimentConfig, Resources, TrialSpec
 from repro_torch.core.orchestrator import Orchestrator

@@ -91,6 +91,18 @@ def current_stream(dev: torch.device) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def _no_grad_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel wrapper's output carries no autograd graph: reached with
+    inputs that require grad (outside the ``autograd.Function`` of
+    ``ops.py``, whose forward runs with grad off) it would hand back a
+    result that silently gives those inputs no gradient.  Raise instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: inputs require grad but the kernel records no graph; "
+            f"call ops.{name.removesuffix('_bwd')}, whose autograd.Function "
+            "carries the gradient")
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")

@@ -1,6 +1,7 @@
 // flash_attention: forward softmax attention on Hopper (sm_90a), causal
 // and/or sliding window, optional tanh softcap, grouped-query heads, with
-// an online softmax over tiles of keys.
+// an online softmax over tiles of keys; and its gradient (namespace bwd,
+// at the end of the file).
 //
 // Replaces: src/repro/kernels/flash_attention.py : flash_attention /
 // _flash_kernel, the Pallas TPU kernel (grid (B, H, Sq/bq, Skv/bk) with
@@ -59,6 +60,11 @@
 //  * Budget at D = 256: shared memory Q 64 KB + 2 stages x (K 32 KB +
 //    V 32 KB) = 192 KB (plus 1 KB of alignment slack and the barriers), one
 //    block an SM; registers 2 x 128 x 240 + 128 x 24 = 64 512 of 65 536.
+//
+// Both kernels can write the float32 row log-sum-exp m + log(max(l,
+// 1e-30)) of each (b, h, q) row to an optional (B, H, Sq) output: the
+// backward below recomputes P = exp(s - lse) from it.  A null pointer
+// writes nothing.
 //
 // float32 — `f32::flash_kernel`, off the serve path, on the CUDA cores:
 // one block of 256 threads per (q head, 64-row q tile, batch), Q, K and V
@@ -128,9 +134,9 @@ __device__ __forceinline__ float reduce16_sum(float x) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int Sq,
-             int Skv, int H, int K, float scale, int causal, int window,
-             float softcap) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Skv, int H, int K,
+             float scale, int causal, int window, float softcap) {
   using L = Layout<D>;
   constexpr int kCols = D / 16;  // accumulator columns a thread
   extern __shared__ float smem[];
@@ -243,12 +249,14 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* row = o + (((size_t)b * Sq + qp) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) row[col + 16 * c] = acc[i][c] / lc;
+    if (lse != nullptr && col == 0)
+      lse[((size_t)b * H + h) * Sq + qp] = m[i] + logf(lc);
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int K, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int K, int causal, int window,
            float softcap, cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::kBytes;
   static_assert(smem <= kMaxSmem, "tiles exceed a block's shared memory");
@@ -260,8 +268,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   }
   dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
   flash_kernel<D><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv,
-      H, K, 1.0f / sqrtf((float)D), causal, window, softcap);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
+      Skv, H, K, 1.0f / sqrtf((float)D), causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -553,8 +561,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H, int K,
-                float scale, int causal, int window, float softcap) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+                int Skv, int H, int K, float scale, int causal, int window,
+                float softcap) {
   using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
   // swizzle atoms want 1 KB alignment
@@ -735,6 +744,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int qp = row + 8 * half;
       if (qp >= Sq) continue;
       const float lc = half ? lc1 : lc0;
+      if (lse != nullptr && colq == 0)
+        lse[((size_t)b * H + h) * Sq + qp] = (half ? m1 : m0) + logf(lc);
       __nv_bfloat16* dst = o + (((size_t)b * Sq + qp) * H + h) * D + colq;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -794,8 +805,8 @@ bool make_map(CUtensorMap* map, const void* x, int B, int S, int nh) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int K, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int K, int causal, int window,
            float softcap, cudaStream_t stream) {
   constexpr size_t smem = Cfg<D>::kBytes;
   CUtensorMap mq, mk, mv;
@@ -808,58 +819,422 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, (Sq + kConsumers * kRows - 1) / (kConsumers * kRows), B);
   flash_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)o, Sq, Skv, H, K, 1.0f / sqrtf((float)D),
-      causal, window, softcap);
+      mq, mk, mv, (__nv_bfloat16*)o, lse, Sq, Skv, H, K,
+      1.0f / sqrtf((float)D), causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
 template <bool kBf16, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int K, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int K, int causal, int window,
            float softcap, cudaStream_t stream) {
   if constexpr (kBf16)
-    return tc::launch<D>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
+    return tc::launch<D>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, window,
                          softcap, stream);
   else
-    return f32::launch<D>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
+    return f32::launch<D>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, window,
                           softcap, stream);
 }
 
 template <bool kBf16>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Skv, int H, int K, int D, int causal, int window,
-             float softcap, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int Sq, int Skv, int H, int K, int D, int causal,
+             int window, float softcap, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<kBf16, 16>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
-                               softcap, stream);
+      return launch<kBf16, 16>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
+                               window, softcap, stream);
     case 64:
-      return launch<kBf16, 64>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
-                               softcap, stream);
+      return launch<kBf16, 64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
+                               window, softcap, stream);
     case 128:
-      return launch<kBf16, 128>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
-                                softcap, stream);
+      return launch<kBf16, 128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
+                                window, softcap, stream);
     case 256:
-      return launch<kBf16, 256>(q, k, v, o, B, Sq, Skv, H, K, causal, window,
-                                softcap, stream);
+      return launch<kBf16, 256>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
+                                window, softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// ----------------------------------------------------------- backward
+// The gradient of the forward above, written for this port: the Pallas
+// kernel has no backward (the JAX package trains through XLA attention).
+// Simple and right first, on the CUDA cores for both input types; the
+// bound is operations, 10*D multiply-adds a visible (query, key) pair a
+// head (S = Q.K^T, dP = dO.V^T, dV, dK, dQ), 2.5x the forward's.
+//
+//  * D_i = rowsum(dO_i * O_i), float32, by `dot_kernel`: one warp a
+//    (b, q, h) row, into (B, H, Sq).
+//  * dK, dV by `dkdv_kernel`: one block per (tile of kB keys, KV head,
+//    batch).  It walks the H/K query heads of its KV head and the query
+//    tiles of its keys' causal/window band, recomputes P = exp(s - lse)
+//    from q, k and the softcap, and keeps dK and dV of its keys in
+//    registers, so it owns them and needs no atomics.
+//  * dQ by `dq_kernel`: one block per (tile of kB query rows, query head,
+//    batch), walking the key tiles of its rows' band.
+//  Tiles are float32 in shared memory (rows padded by one float), read
+//  from the input type; sums are float32; the outputs are written once,
+//  in the input type.  Thread t owns rows 2(t/16), 2(t/16)+1 of a tile
+//  and columns t%16 + 16j.  dS = P (dP - D) (1 - tanh^2 under a softcap)
+//  / sqrt(D); masked pairs get P = 0.
+namespace bwd {
+
+constexpr int kB = 32;         // query rows or keys a tile
+constexpr int kThreads = 256;  // 16 row pairs x 16 column lanes
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <int D>
+struct Smem {
+  static constexpr int kStride = D + 1;               // padded tile rows
+  static constexpr int kTile = kB * kStride;          // floats a D-wide tile
+  static constexpr int kScore = kB * (kB + 1);        // floats a score tile
+  // Q, dO, K, V tiles, P and dS, lse and D of the query rows
+  static constexpr size_t kBytes =
+      (4 * (size_t)kTile + 2 * kScore + 2 * kB) * sizeof(float);
+  static_assert(kBytes <= kMaxSmem, "tiles exceed a block's shared memory");
+};
+
+// D_i = sum_d dO[i, d] O[i, d] for every row i = (b, q, h), into
+// dvec (B, H, Sq).
+template <typename T>
+__global__ void __launch_bounds__(256)
+dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+           float* __restrict__ dvec, long long rows, int Sq, int H, int D) {
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const T* a = o + row * D;
+  const T* g = dout + row * D;
+  float sum = 0.0f;
+  for (int d = lane; d < D; d += 32) sum = fmaf(to_f(a[d]), to_f(g[d]), sum);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) {
+    const int h = (int)(row % H);
+    const long long bq = row / H;
+    const int qp = (int)(bq % Sq);
+    const long long b = bq / Sq;
+    dvec[(b * H + h) * Sq + qp] = sum;
+  }
+}
+
+// Rows [row0, row0 + kB) of head `head` of x (B, S, nh, D) into a padded
+// float tile; rows past S are zeros.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const T* __restrict__ x, int b,
+                                          int row0, int S, int nh, int head) {
+  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    const int s = row0 + r;
+    dst[r * Smem<D>::kStride + c] =
+        s < S ? to_f(x[(((size_t)b * S + s) * nh + head) * D + c]) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Skv,
+                                        int causal, int window) {
+  bool ok = qp < Sq && kp < Skv;
+  if (causal) ok = ok && qp >= kp;
+  if (window) ok = ok && (qp - kp) < window;
+  return ok;
+}
+
+// For the query tile at q0 and the key tile at k0 (both in shared
+// memory): P (when ps is given) and dS, each [query row][key], from
+// S = Q.K^T and dP = dO.V^T.
+template <int D>
+__device__ __forceinline__ void grad_scores(
+    float* ps, float* dss, const float* qs, const float* dos,
+    const float* ks, const float* vs, const float* lse_s, const float* d_s,
+    int q0, int k0, int Sq, int Skv, float scale, int causal, int window,
+    float softcap) {
+  constexpr int S = Smem<D>::kStride;
+  const int r0 = 2 * (threadIdx.x / 16), c0 = threadIdx.x % 16;
+  float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  float dp[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float q0v = qs[r0 * S + d], q1v = qs[(r0 + 1) * S + d];
+    const float g0v = dos[r0 * S + d], g1v = dos[(r0 + 1) * S + d];
+    const float k0v = ks[c0 * S + d], k1v = ks[(c0 + 16) * S + d];
+    const float v0v = vs[c0 * S + d], v1v = vs[(c0 + 16) * S + d];
+    s[0][0] = fmaf(q0v, k0v, s[0][0]);
+    s[0][1] = fmaf(q0v, k1v, s[0][1]);
+    s[1][0] = fmaf(q1v, k0v, s[1][0]);
+    s[1][1] = fmaf(q1v, k1v, s[1][1]);
+    dp[0][0] = fmaf(g0v, v0v, dp[0][0]);
+    dp[0][1] = fmaf(g0v, v1v, dp[0][1]);
+    dp[1][0] = fmaf(g1v, v0v, dp[1][0]);
+    dp[1][1] = fmaf(g1v, v1v, dp[1][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + i;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = c0 + 16 * j;
+      float x = s[i][j] * scale, dcap = 1.0f;
+      if (softcap != 0.0f) {
+        const float t = tanhf(x / softcap);
+        x = t * softcap;
+        dcap = 1.0f - t * t;
+      }
+      const float p = visible(q0 + r, k0 + c, Sq, Skv, causal, window)
+                          ? expf(x - lse_s[r])
+                          : 0.0f;
+      if (ps != nullptr) ps[r * (kB + 1) + c] = p;
+      dss[r * (kB + 1) + c] = p * (dp[i][j] - d_s[r]) * dcap * scale;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, const T* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ dvec,
+            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H,
+            int K, float scale, int causal, int window, float softcap) {
+  using L = Smem<D>;
+  constexpr int kCols = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + L::kTile;
+  float* ks = dos + L::kTile;
+  float* vs = ks + L::kTile;
+  float* ps = vs + L::kTile;
+  float* dss = ps + L::kScore;
+  float* lse_s = dss + L::kScore;
+  float* d_s = lse_s + kB;
+
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kB, k1 = min(k0 + kB, Skv);
+  const int G = H / K;
+  const int r0 = 2 * (threadIdx.x / 16), c0 = threadIdx.x % 16;
+  // the query rows that may see any of these keys, in whole tiles
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Sq, k1 - 1 + window) : Sq;
+  const int t_lo = q_lo / kB, t_hi = q_lo < q_hi ? (q_hi + kB - 1) / kB : 0;
+
+  load_rows<T, D>(ks, k, b, k0, Skv, K, kvh);
+  load_rows<T, D>(vs, v, b, k0, Skv, K, kvh);
+  float dk_acc[2][kCols], dv_acc[2][kCols];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int q0 = t * kB;
+      __syncthreads();  // the last tile's readers are done
+      load_rows<T, D>(qs, q, b, q0, Sq, H, h);
+      load_rows<T, D>(dos, dout, b, q0, Sq, H, h);
+      if (threadIdx.x < kB) {
+        const int qp = q0 + threadIdx.x;
+        const size_t idx = ((size_t)b * H + h) * Sq + qp;
+        lse_s[threadIdx.x] = qp < Sq ? lse[idx] : 0.0f;
+        d_s[threadIdx.x] = qp < Sq ? dvec[idx] : 0.0f;
+      }
+      __syncthreads();
+      grad_scores<D>(ps, dss, qs, dos, ks, vs, lse_s, d_s, q0, k0, Sq, Skv,
+                     scale, causal, window, softcap);
+      __syncthreads();
+      // dV[key] += sum_q P[q][key] dO[q];  dK[key] += sum_q dS[q][key] Q[q]
+#pragma unroll 4
+      for (int j = 0; j < kB; ++j) {
+        const float p0 = ps[j * (kB + 1) + r0], p1 = ps[j * (kB + 1) + r0 + 1];
+        const float s0 = dss[j * (kB + 1) + r0],
+                    s1 = dss[j * (kB + 1) + r0 + 1];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const float gv = dos[j * L::kStride + c0 + 16 * c];
+          const float qv = qs[j * L::kStride + c0 + 16 * c];
+          dv_acc[0][c] = fmaf(p0, gv, dv_acc[0][c]);
+          dv_acc[1][c] = fmaf(p1, gv, dv_acc[1][c]);
+          dk_acc[0][c] = fmaf(s0, qv, dk_acc[0][c]);
+          dk_acc[1][c] = fmaf(s1, qv, dk_acc[1][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kp = k0 + r0 + i;
+    if (kp >= Skv) continue;
+    const size_t base = (((size_t)b * Skv + kp) * K + kvh) * D + c0;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      dk[base + 16 * c] = from_f<T>(dk_acc[i][c]);
+      dv[base + 16 * c] = from_f<T>(dv_acc[i][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+          const T* __restrict__ v, const T* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ dvec,
+          T* __restrict__ dq, int Sq, int Skv, int H, int K, float scale,
+          int causal, int window, float softcap) {
+  using L = Smem<D>;
+  constexpr int kCols = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + L::kTile;
+  float* ks = dos + L::kTile;
+  float* vs = ks + L::kTile;
+  float* dss = vs + L::kTile;
+  float* lse_s = dss + 2 * L::kScore;
+  float* d_s = lse_s + kB;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int q0 = blockIdx.x * kB, q1 = min(q0 + kB, Sq);
+  const int r0 = 2 * (threadIdx.x / 16), c0 = threadIdx.x % 16;
+  // the band of keys any row of this tile may see, in whole tiles
+  const int kv_lo = window ? max(0, q0 - window + 1) : 0;
+  const int kv_hi = causal ? min(q1, Skv) : Skv;
+  const int t_lo = kv_lo / kB;
+  const int t_hi = kv_lo < kv_hi ? (kv_hi + kB - 1) / kB : 0;
+
+  load_rows<T, D>(qs, q, b, q0, Sq, H, h);
+  load_rows<T, D>(dos, dout, b, q0, Sq, H, h);
+  if (threadIdx.x < kB) {
+    const int qp = q0 + threadIdx.x;
+    const size_t idx = ((size_t)b * H + h) * Sq + qp;
+    lse_s[threadIdx.x] = qp < Sq ? lse[idx] : 0.0f;
+    d_s[threadIdx.x] = qp < Sq ? dvec[idx] : 0.0f;
+  }
+  float acc[2][kCols];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * kB;
+    __syncthreads();  // the last tile's readers are done
+    load_rows<T, D>(ks, k, b, k0, Skv, K, kvh);
+    load_rows<T, D>(vs, v, b, k0, Skv, K, kvh);
+    __syncthreads();
+    grad_scores<D>(nullptr, dss, qs, dos, ks, vs, lse_s, d_s, q0, k0, Sq,
+                   Skv, scale, causal, window, softcap);
+    __syncthreads();
+    // dQ[q] += sum_key dS[q][key] K[key]
+#pragma unroll 4
+    for (int j = 0; j < kB; ++j) {
+      const float s0 = dss[r0 * (kB + 1) + j], s1 = dss[(r0 + 1) * (kB + 1) + j];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float kv = ks[j * L::kStride + c0 + 16 * c];
+        acc[0][c] = fmaf(s0, kv, acc[0][c]);
+        acc[1][c] = fmaf(s1, kv, acc[1][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + r0 + i;
+    if (qp >= Sq) continue;
+    const size_t base = (((size_t)b * Sq + qp) * H + h) * D + c0;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dq[base + 16 * c] = from_f<T>(acc[i][c]);
+  }
+}
+
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* dvec, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int H, int K,
+           int causal, int window, float softcap, cudaStream_t stream) {
+  constexpr size_t smem = Smem<D>::kBytes;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dq_kernel<T, D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long rows = (long long)B * Sq * H;
+  dot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      (const T*)o, (const T*)dout, dvec, rows, Sq, H, D);
+  const float scale = 1.0f / sqrtf((float)D);
+  dkdv_kernel<T, D><<<dim3((Skv + kB - 1) / kB, K, B), kThreads, smem,
+                      stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dvec,
+      (T*)dk, (T*)dv, Sq, Skv, H, K, scale, causal, window, softcap);
+  dq_kernel<T, D><<<dim3((Sq + kB - 1) / kB, H, B), kThreads, smem,
+                    stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dvec,
+      (T*)dq, Sq, Skv, H, K, scale, causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_d(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const float* lse, float* dvec, void* dq,
+             void* dk, void* dv, int B, int Sq, int Skv, int H, int K, int D,
+             int causal, int window, float softcap, cudaStream_t stream) {
+  switch (D) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq,
+                           Skv, H, K, causal, window, softcap, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq,
+                           Skv, H, K, causal, window, softcap, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq,
+                            Skv, H, K, causal, window, softcap, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq,
+                            Skv, H, K, causal, window, softcap, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
 
 }  // namespace
 
 // q, o: (B, Sq, H, D); k, v: (B, Skv, K, D); contiguous, on one device, all
 // float32 (dtype 0, the CUDA-core kernel) or all bfloat16 (dtype 1, the
 // tensor-core kernel); K divides H; D one of 16, 64, 128, 256; window 0
-// means none, softcap 0 means none.  Launches on `stream` and returns the
-// cudaError_t of the launch.
+// means none, softcap 0 means none.  lse, when not null: (B, H, Sq) float32,
+// the row log-sum-exp m + log(max(l, 1e-30)) of the scores the softmax
+// normalised.  Launches on `stream` and returns the cudaError_t of the
+// launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Skv, int H, int K, int D, int dtype,
-                                      int causal, int window, float softcap,
+                                      const void* v, void* o, float* lse,
+                                      int B, int Sq, int Skv, int H, int K,
+                                      int D, int dtype, int causal,
+                                      int window, float softcap,
                                       void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -867,10 +1242,35 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_d<false>(q, k, v, o, B, Sq, Skv, H, K, D, causal, window,
-                           softcap, s);
+    return launch_d<false>(q, k, v, o, lse, B, Sq, Skv, H, K, D, causal,
+                           window, softcap, s);
   if (dtype == 1)
-    return launch_d<true>(q, k, v, o, B, Sq, Skv, H, K, D, causal, window,
-                          softcap, s);
+    return launch_d<true>(q, k, v, o, lse, B, Sq, Skv, H, K, D, causal,
+                          window, softcap, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The gradient of flash_attention_launch's output: dq (B, Sq, H, D), dk
+// and dv (B, Skv, K, D) from q, k, v, the forward's o and lse, and dout,
+// the gradient of o; dvec: (B, H, Sq) float32 scratch (D = rowsum(dO * O)).
+// Types, shapes and options as flash_attention_launch's (dtype 0 float32,
+// 1 bfloat16); every kernel runs on the CUDA cores.  Launches three
+// kernels on `stream` and returns the cudaError_t of the launches.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* dvec, void* dq, void* dk,
+    void* dv, int B, int Sq, int Skv, int H, int K, int D, int dtype,
+    int causal, int window, float softcap, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return bwd::launch_d<float>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B,
+                                Sq, Skv, H, K, D, causal, window, softcap, s);
+  if (dtype == 1)
+    return bwd::launch_d<__nv_bfloat16>(q, k, v, o, dout, lse, dvec, dq, dk,
+                                        dv, B, Sq, Skv, H, K, D, causal,
+                                        window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

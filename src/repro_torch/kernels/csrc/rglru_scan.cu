@@ -1,6 +1,7 @@
 // rglru_scan: the RG-LRU linear recurrence h_t = exp(log_a_t) * h_{t-1} + b_t
 // from h_0 = 0, on Hopper (sm_90a), as a single-pass chunked scan across
-// time, the carry passed from tile to tile.
+// time, the carry passed from tile to tile; and its gradient
+// (rglru_bwd_kernel, the same scan walking time backwards).
 //
 // Replaces: src/repro/kernels/rglru_scan.py : rglru_scan / _rglru_kernel,
 // the Pallas TPU kernel (feature tiles in VMEM, time the innermost
@@ -201,6 +202,130 @@ rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
   }
 }
 
+// ---------------------------------------------------------- backward
+// The gradient of the scan, written for this port (the JAX package trains
+// through associative_scan and has no backward kernel).  With h the
+// forward's output and dh its gradient, the reverse recurrence
+//   g_t = dh_t + a_{t+1} g_{t+1}   (g past the end is 0)
+// gives d_b_t = g_t and d_log_a_t = g_t a_t h_{t-1} (h_{-1} = 0).  It is
+// the forward's chunked scan walking time backwards: one block per tile of
+// kT steps x kF features, tiles taking their place from the same ticket
+// but from the last tile of each chain back to the first; the carry a tile
+// passes to the one before it is c = a_{t0} g_{t0} at its first step t0.
+// log_a and dh are staged into shared memory with cp.async; h_{t-1} is
+// read from global memory in pass 2 (one load a step, 128-byte lines a
+// warp).  Bound: bytes, 20 an element (log_a, h and dh read once, d_log_a
+// and d_b written once), 154 MB at (1, 3000, 2560).
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads)
+rglru_bwd_kernel(const float* __restrict__ log_a, const float* __restrict__ h,
+                 const float* __restrict__ dh, float* __restrict__ d_log_a,
+                 float* __restrict__ d_b, Scratch sc, int B, int S, int R) {
+  __shared__ __align__(16) float a_s[kT][kF];
+  __shared__ __align__(16) float g_s[kT][kF];
+  __shared__ float sub_a[kSub][kF], sub_c[kSub][kF];
+  __shared__ float carry_s[kF];
+  __shared__ int ticket_s;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) ticket_s = atomicAdd(sc.ticket, 1);
+  __syncthreads();
+  const int strips = (R + kF - 1) / kF;
+  const int tiles = (S + kT - 1) / kT;
+  const int chains = B * strips;
+  const int ticket = ticket_s;
+  const int rev = ticket / chains, chain = ticket - rev * chains;
+  const int tile = tiles - 1 - rev;
+  const int bi = chain / strips, f0 = (chain - bi * strips) * kF;
+  const int t0 = tile * kT;
+  const size_t base = (size_t)bi * S * R;
+
+  // ---- stage log_a and dh (zeros past S and R: a = 1, dh = 0 are inert)
+  if (kAligned) {
+    for (int ch = tid; ch < kT * kF / 4; ch += kThreads) {
+      const int row = ch / (kF / 4), col = 4 * (ch % (kF / 4));
+      const int t = t0 + row, f = f0 + col;
+      const bool ok = t < S && f < R;
+      const size_t off = ok ? base + (size_t)t * R + f : 0;
+      cp16(&a_s[row][col], log_a + off, ok);
+      cp16(&g_s[row][col], dh + off, ok);
+    }
+  } else {
+    for (int e = tid; e < kT * kF; e += kThreads) {
+      const int row = e / kF, col = e % kF;
+      const int t = t0 + row, f = f0 + col;
+      const bool ok = t < S && f < R;
+      const size_t off = ok ? base + (size_t)t * R + f : 0;
+      cp4(&a_s[row][col], log_a + off, ok);
+      cp4(&g_s[row][col], dh + off, ok);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  // ---- pass 1: thread (sub-chunk s, feature f), from its last step down,
+  // from a carry of 0: the sub-chunk's map c_out = A c_in + C
+  const int f = tid % kF, s = tid / kF;
+  {
+    float A = 1.0f, c = 0.0f;
+#pragma unroll
+    for (int i = kL - 1; i >= 0; --i) {
+      const int row = s * kL + i;
+      const float a = expf(a_s[row][f]);
+      a_s[row][f] = a;
+      c = a * (g_s[row][f] + c);
+      A *= a;
+    }
+    sub_a[s][f] = A;
+    sub_c[s][f] = c;
+  }
+  __syncthreads();
+
+  // ---- the tile's map, its carry-in from the tile after it (spinning on
+  // that tile's word), its own carry published for the tile before
+  if (tid < kF) {
+    float At = 1.0f, Ct = 0.0f;
+#pragma unroll
+    for (int q = kSub - 1; q >= 0; --q) {
+      Ct = fmaf(sub_a[q][f], Ct, sub_c[q][f]);
+      At *= sub_a[q][f];
+    }
+    const size_t idx = (size_t)chain * tiles + tile;
+    float carry = 0.0f;
+    if (tile < tiles - 1) {
+      const unsigned long long* next = sc.state + (idx + 1) * kF + f;
+      unsigned long long word;
+      while (((word = load_acquire(next)) >> 32) == 0) __nanosleep(20);
+      carry = __uint_as_float((unsigned)word);
+    }
+    carry_s[f] = carry;
+    store_release(sc.state + idx * kF + f,
+                  (1ull << 32) | __float_as_uint(fmaf(At, carry, Ct)));
+  }
+  __syncthreads();
+
+  // ---- pass 2: the reverse recurrence again from the carry-in, both
+  // gradients written once
+  float c = carry_s[f];
+  for (int q = kSub - 1; q > s; --q) c = fmaf(sub_a[q][f], c, sub_c[q][f]);
+  const bool f_ok = f0 + f < R;
+  const size_t col = base + f0 + f;
+#pragma unroll
+  for (int i = kL - 1; i >= 0; --i) {
+    const int row = s * kL + i;
+    const int t = t0 + row;
+    const float a = a_s[row][f];
+    const float g = g_s[row][f] + c;
+    c = a * g;
+    if (f_ok && t < S) {
+      const float hp = t > 0 ? __ldg(h + col + (size_t)(t - 1) * R) : 0.0f;
+      d_b[col + (size_t)t * R] = g;
+      d_log_a[col + (size_t)t * R] = g * a * hp;
+    }
+  }
+}
+
 // byte offsets of the scratch's parts: ticket, states, end
 void scratch_layout(int B, int S, int R, size_t off[3]) {
   const size_t n = (size_t)B * ((R + kF - 1) / kF) * ((S + kT - 1) / kT);
@@ -247,5 +372,39 @@ extern "C" int rglru_scan_launch(const float* log_a, const float* b,
   else
     rglru_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(log_a, b, h,
                                                                sc, B, S, R);
+  return (int)cudaGetLastError();
+}
+
+// log_a, h, dh, d_log_a, d_b: (B, S, R) float32, contiguous, on one
+// device (h the forward's output, dh its gradient); scratch:
+// rglru_scan_scratch_bytes(B, S, R) bytes, 16-byte aligned.  Zeroes the
+// scratch and launches the backward kernel, both on `stream`; returns the
+// cudaError_t of the two.
+extern "C" int rglru_scan_bwd_launch(const float* log_a, const float* h,
+                                     const float* dh, float* d_log_a,
+                                     float* d_b, void* scratch, int B, int S,
+                                     int R, void* stream) {
+  if (B <= 0 || S <= 0 || R <= 0 || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)B * ((R + kF - 1) / kF) *
+                           ((S + kT - 1) / kT);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  size_t off[3];
+  scratch_layout(B, S, R, off);
+  char* base = static_cast<char*>(scratch);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(base, 0, off[2], st);
+  if (err != cudaSuccess) return (int)err;
+  Scratch sc{reinterpret_cast<int*>(base + off[0]),
+             reinterpret_cast<unsigned long long*>(base + off[1])};
+  const bool aligned = R % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(log_a) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dh) % 16 == 0;
+  if (aligned)
+    rglru_bwd_kernel<true><<<(unsigned)blocks, kThreads, 0, st>>>(
+        log_a, h, dh, d_log_a, d_b, sc, B, S, R);
+  else
+    rglru_bwd_kernel<false><<<(unsigned)blocks, kThreads, 0, st>>>(
+        log_a, h, dh, d_log_a, d_b, sc, B, S, R);
   return (int)cudaGetLastError();
 }

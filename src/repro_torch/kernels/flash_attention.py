@@ -1,15 +1,26 @@
 """Wrapper of the hand-written CUDA flash attention
-(``csrc/flash_attention.cu``), with its plain version.
+(``csrc/flash_attention.cu``), forward and backward, with their plain
+versions.
 
-``flash_attention(q, k, v, causal=, window=, softcap=)`` is forward
-softmax attention over q (B,Sq,H,D) and k, v (B,Skv,K,D) with K | H
-(grouped-query heads), causal and/or a sliding window, an optional tanh
-softcap, float32 inside and out in q's dtype.  For tensors on the CPU it
-takes its plain version (``ref.flash_attention_ref``, a dense masked
-softmax); for CUDA tensors it launches the kernel or raises.  The C entry
-point picks the kernel by dtype: bfloat16 runs on the tensor cores
-(``wgmma`` fed by TMA), float32 on the CUDA cores.  Every launch adds one
-to ``flash_attention_launches``.
+``flash_attention(q, k, v, causal=, window=, softcap=, return_lse=)`` is
+forward softmax attention over q (B,Sq,H,D) and k, v (B,Skv,K,D) with
+K | H (grouped-query heads), causal and/or a sliding window, an optional
+tanh softcap, float32 inside and out in q's dtype; with ``return_lse``
+it also returns the float32 row log-sum-exp (B,H,Sq) that the backward
+recomputes the probabilities from.  ``flash_attention_bwd(q, k, v, o,
+lse, do, ...)`` is its gradient -> (dq, dk, dv) in the inputs' dtype.
+For tensors on the CPU each takes its plain version
+(``ref.flash_attention_ref``, ``ref.flash_attention_bwd_ref``); for CUDA
+tensors it launches its kernels or raises.  The forward's C entry point
+picks the kernel by dtype: bfloat16 runs on the tensor cores (``wgmma``
+fed by TMA), float32 on the CUDA cores; the backward runs on the CUDA
+cores for both.  Every forward launch adds one to
+``flash_attention_launches``, every backward launch (its three kernels)
+one to ``flash_attention_bwd_launches``.
+
+Neither wrapper records an autograd graph: the gradient is
+``ops.flash_attention``'s ``autograd.Function``, and a wrapper reached
+with inputs that require grad, outside that Function, raises.
 """
 from __future__ import annotations
 
@@ -19,9 +30,10 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._launch import I, P, LaunchCounter, _check, _fn, \
-    _raise_on
+    _no_grad_inputs, _raise_on, current_stream, on_device
 
 flash_attention_launches = LaunchCounter()
+flash_attention_bwd_launches = LaunchCounter()
 
 #: input types the kernel takes, by the code its C entry point expects
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -29,43 +41,92 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
-    """q: (B,Sq,H,D); k, v: (B,Skv,K,D) -> (B,Sq,H,D) in q's dtype."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
+def _check_call(name, q, k, window):
+    """The shape, type and option checks both directions share ->
+    (B, Sq, H, D, Skv, K)."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+        raise ValueError(f"{name}: no kernel for device {q.device}")
     if q.dim() != 4 or k.dim() != 4:
-        raise ValueError("flash_attention: q and k must be (B, S, heads, D)")
+        raise ValueError(f"{name}: q and k must be (B, S, heads, D)")
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     if K == 0 or H % K:
-        raise ValueError(f"flash_attention: {K} kv heads do not divide {H}")
+        raise ValueError(f"{name}: {K} kv heads do not divide {H}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
     if q.dtype not in DTYPES:
-        raise TypeError(f"flash_attention: dtype {q.dtype} not in "
-                        f"{tuple(DTYPES)}")
+        raise TypeError(f"{name}: dtype {q.dtype} not in {tuple(DTYPES)}")
     if window < 0:
-        raise ValueError(f"flash_attention: window {window} < 0")
+        raise ValueError(f"{name}: window {window} < 0")
+    return B, Sq, H, D, Skv, K
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, return_lse: bool = False):
+    """q: (B,Sq,H,D); k, v: (B,Skv,K,D) -> o (B,Sq,H,D) in q's dtype, and
+    with ``return_lse`` (o, lse (B,H,Sq) float32)."""
+    _no_grad_inputs("flash_attention", q, k, v)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap,
+                                       return_lse=return_lse)
+    B, Sq, H, D, Skv, K = _check_call("flash_attention", q, k, window)
     dev = q.device
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check("q", q, (B, Sq, H, D), dev, q.dtype)
     _check("k", k, (B, Skv, K, D), dev, q.dtype)
     _check("v", v, (B, Skv, K, D), dev, q.dtype)
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if o.numel() == 0 or Skv == 0:
-        return o.zero_()
+        o.zero_()
+        if lse is not None:
+            lse.fill_(ref.NEG_INF)
+        return (o, lse) if return_lse else o
     fn = _fn("flash_attention", "flash_attention_launch",
-             [P] * 4 + [I] * 9 + [ctypes.c_float, P])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+             [P] * 5 + [I] * 9 + [ctypes.c_float, P])
+    with on_device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, Sq, Skv, H, K, D, DTYPES[q.dtype], int(bool(causal)),
-                 int(window), float(softcap), stream)
+                 int(window), float(softcap), current_stream(dev))
     _raise_on(err, "flash_attention")
     flash_attention_launches.add()
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: int = 0, softcap: float = 0.0):
+    """The gradient of ``flash_attention``: q, o, do (B,Sq,H,D); k, v
+    (B,Skv,K,D); lse (B,H,Sq) float32 as the forward returned it ->
+    (dq, dk, dv) in the inputs' dtype."""
+    _no_grad_inputs("flash_attention_bwd", q, k, v, o, do)
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal, window=window,
+                                           softcap=softcap)
+    B, Sq, H, D, Skv, K = _check_call("flash_attention_bwd", q, k, window)
+    dev, dt = q.device, q.dtype
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    for name, t, shape in (("q", q, (B, Sq, H, D)), ("k", k, (B, Skv, K, D)),
+                           ("v", v, (B, Skv, K, D)), ("o", o, (B, Sq, H, D)),
+                           ("do", do, (B, Sq, H, D))):
+        _check(name, t, shape, dev, dt)
+    _check("lse", lse, (B, H, Sq), dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if Sq == 0 or Skv == 0 or dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    fn = _fn("flash_attention", "flash_attention_bwd_launch",
+             [P] * 10 + [I] * 9 + [ctypes.c_float, P])
+    with on_device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, Sq, Skv, H, K, D, DTYPES[dt], int(bool(causal)),
+                 int(window), float(softcap), current_stream(dev))
+    _raise_on(err, "flash_attention_bwd")
+    flash_attention_bwd_launches.add()
+    return dq, dk, dv

@@ -5,6 +5,16 @@ For CUDA tensors these launch the hand-written kernels (``kernels/gp.py``,
 ``kernels/int8_quant.py``); for CPU tensors they run the plain PyTorch
 oracles in ``ref.py`` — callers never branch on the device themselves.
 
+``flash_attention`` and ``rglru_scan`` are differentiable: each is a
+``torch.autograd.Function`` whose forward is the kernel wrapper (saving
+what its backward needs) and whose backward is another Function around
+the backward kernel (``flash_attention_bwd``, ``rglru_scan_bwd``), on
+both devices.  Each Function has a ``vmap`` rule that folds the mapped
+dim into the batch dim, so under ``torch.func.vmap`` (the population
+trainer, ``core/vmap_trials.py``) one launch serves every trial.  Where
+nothing needs a gradient (serving), ``flash_attention`` calls its wrapper
+directly, and the kernel writes no row log-sum-exp.
+
 ``force_kernel=True`` asks for the kernel wrapper whatever the tensor's
 device, as the reference's flag does.  The GP wrappers have a CPU form of
 their own — the autograd ``gp_nll`` with its analytic backward, over the
@@ -74,23 +84,154 @@ def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand,
                          y_std, cand, best, xi=xi)
 
 
+def _differentiated(*ts: torch.Tensor) -> bool:
+    """Whether a result computed from ``ts`` needs a graph: autograd
+    records one, or a ``torch.func`` transform wraps them (its tensors
+    reach a kernel only through a Function's rules)."""
+    return ((torch.is_grad_enabled() and any(t.requires_grad for t in ts))
+            or any(torch._C._functorch.is_functorch_wrapped_tensor(t)
+                   for t in ts))
+
+
+def _fold(t, dim, size):
+    """A vmapped argument with its mapped dim (None: not mapped, so
+    broadcast) folded into its leading batch dim: (size·B, ...)."""
+    t = t.unsqueeze(0).expand(size, *t.shape) if dim is None \
+        else t.movedim(dim, 0)
+    return t.reshape(size * t.shape[1], *t.shape[2:])
+
+
+def _unfold(t, size):
+    return t.reshape(size, t.shape[0] // size, *t.shape[1:])
+
+
+class _FlashAttention(torch.autograd.Function):
+    """o, lse = attention(q, k, v); saves q, k, v, o and lse."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap):
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, return_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = (causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, o, lse, do,
+                                              *ctx.opts)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, softcap):
+        n = info.batch_size
+        o, lse = _FlashAttention.apply(
+            *(_fold(t, d, n) for t, d in zip((q, k, v), in_dims)),
+            causal, window, softcap)
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
+
+
+class _FlashAttentionBwd(torch.autograd.Function):
+    """(dq, dk, dv) of ``_FlashAttention``: a Function of its own so that
+    the backward, too, runs under ``vmap`` as one folded launch."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, causal, window, softcap):
+        return _fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=window, softcap=softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash_attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, causal, window, softcap):
+        n = info.batch_size
+        grads = _FlashAttentionBwd.apply(
+            *(_fold(t, d, n) for t, d in zip((q, k, v, o, lse, do),
+                                            in_dims)),
+            causal, window, softcap)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
+
+
+class _RglruScan(torch.autograd.Function):
+    """h = scan(log_a, b); saves log_a and h."""
+
+    @staticmethod
+    def forward(log_a, b):
+        return _rg.rglru_scan(log_a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, dh):
+        log_a, h = ctx.saved_tensors
+        return _RglruScanBwd.apply(log_a, h, dh)
+
+    @staticmethod
+    def vmap(info, in_dims, log_a, b):
+        n = info.batch_size
+        h = _RglruScan.apply(_fold(log_a, in_dims[0], n),
+                             _fold(b, in_dims[1], n))
+        return _unfold(h, n), 0
+
+
+class _RglruScanBwd(torch.autograd.Function):
+    """(d_log_a, d_b) of ``_RglruScan``, vmapped as one folded launch."""
+
+    @staticmethod
+    def forward(log_a, h, dh):
+        return _rg.rglru_scan_bwd(log_a, h, dh)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("rglru_scan has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, log_a, h, dh):
+        n = info.batch_size
+        grads = _RglruScanBwd.apply(
+            *(_fold(t, d, n) for t, d in zip((log_a, h, dh), in_dims)))
+        return tuple(_unfold(g, n) for g in grads), (0, 0)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
                     force_kernel=False):
-    """Forward softmax attention, q (B,Sq,H,D), k/v (B,Skv,K,D) with
-    K | H, causal and/or a sliding window, optional tanh softcap ->
-    (B,Sq,H,D) in q's dtype: the CUDA kernel on the card, the dense
-    oracle on the CPU."""
+    """Softmax attention, q (B,Sq,H,D), k/v (B,Skv,K,D) with K | H,
+    causal and/or a sliding window, optional tanh softcap -> (B,Sq,H,D)
+    in q's dtype, differentiable in q, k and v: the CUDA kernels forward
+    and backward on the card, the dense oracle and its plain gradient on
+    the CPU."""
     _need_cuda("flash_attention", q, force_kernel)
-    return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
+    if not _differentiated(q, k, v):
+        # serving: no graph, so no lse to save
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
+    return _FlashAttention.apply(q, k, v, causal, window, softcap)[0]
 
 
 def rglru_scan(log_a, b, *, force_kernel=False):
     """h_t = exp(log_a_t)·h_{t−1} + b_t from h₀ = 0 over (B,S,R)
-    float32: the CUDA kernel on the card, the sequential oracle on the
-    CPU."""
+    float32, differentiable in log_a and b: the CUDA kernels forward and
+    backward on the card, the sequential oracles on the CPU."""
     _need_cuda("rglru_scan", log_a, force_kernel)
-    return _rg.rglru_scan(log_a, b)
+    return _RglruScan.apply(log_a, b)
 
 
 def int8_quantize(x, *, force_kernel=False):

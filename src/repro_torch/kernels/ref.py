@@ -5,6 +5,9 @@ Torch mirrors of ``flash_attention_ref``, ``rglru_scan_ref``,
 ``int8_quant_ref`` from the JAX package's ``kernels/ref.py``, formula for
 formula, so the CPU tests can hold each one against its JAX counterpart
 and ``chip_smoke.py`` can hold the CUDA kernels against them on the card.
+``flash_attention_bwd_ref`` and ``rglru_scan_bwd_ref`` are the plain
+gradients of the two LM kernels (the JAX package has no backward kernel
+to mirror; the tests hold them against ``jax.vjp`` of its oracles).
 """
 from __future__ import annotations
 
@@ -17,17 +20,18 @@ _LOG_2PI = math.log(2.0 * math.pi)
 NEG_INF = -2.0 ** 30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q: (B,Sq,H,D); k,v: (B,Skv,K,D) -> (B,Sq,H,D).  Dense masked
-    softmax attention in float32, out in q's dtype: the function the
-    flash kernel must equal.  Query and key positions both count from 0;
-    masked scores take ``NEG_INF``, not -inf."""
+def _flash_scores(q, k, causal, window, softcap):
+    """Scores of ``flash_attention_ref`` (B,K,G,Sq,Skv) float32: scaled,
+    softcapped, masked with ``NEG_INF``; and the softcap's tanh (None
+    without one), whose 1 − tanh² the gradient takes."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, K, H // K, D).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
+    t = None
     if softcap:
-        s = torch.tanh(s / softcap) * softcap
+        t = torch.tanh(s / softcap)
+        s = t * softcap
     q_pos = torch.arange(Sq, device=q.device)[:, None]
     kv_pos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
@@ -35,10 +39,51 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
         mask &= q_pos >= kv_pos
     if window:
         mask &= (q_pos - kv_pos) < window
-    s = torch.where(mask, s, NEG_INF)
+    return torch.where(mask, s, NEG_INF), t
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                        return_lse=False):
+    """q: (B,Sq,H,D); k,v: (B,Skv,K,D) -> (B,Sq,H,D).  Dense masked
+    softmax attention in float32, out in q's dtype: the function the
+    flash kernel must equal.  Query and key positions both count from 0;
+    masked scores take ``NEG_INF``, not -inf.  With ``return_lse`` also
+    the row log-sum-exp of the masked scores, (B,H,Sq) float32."""
+    B, Sq, H, D = q.shape
+    s, _ = _flash_scores(q, k, causal, window, softcap)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    out = out.reshape(B, Sq, H, D).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0,
+                            softcap=0.0):
+    """The gradient of ``flash_attention_ref`` -> (dq, dk, dv) in the
+    inputs' dtype, dense and float32 inside: P = exp(s − lse) from the
+    forward's lse (masked pairs 0), D = rowsum(dO·O) from its output,
+    dS = P (dP − D), times 1 − tanh² under a softcap, over √D; dk and dv
+    summed over the H/K query heads of each KV head."""
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    s, t = _flash_scores(q, k, causal, window, softcap)
+    p = torch.exp(s - lse.float().reshape(B, K, G, Sq)[..., None])
+    qg = q.reshape(B, Sq, K, G, D).float()
+    dog = do.reshape(B, Sq, K, G, D).float()
+    dvec = (dog * o.reshape(B, Sq, K, G, D).float()).sum(-1)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, v.float())
+    ds = p * (dp - dvec.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds / math.sqrt(D)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def rglru_scan_ref(log_a, b, h0=None):
@@ -53,6 +98,25 @@ def rglru_scan_ref(log_a, b, h0=None):
         h = h * a[:, t] + b[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd_ref(log_a, h, dh):
+    """The gradient of ``rglru_scan_ref`` from h₀ = 0, as a sequential
+    loop backwards: g_t = dh_t + a_{t+1}·g_{t+1}, d_b = g and
+    d_log_a_t = g_t·a_t·h_{t−1} with h_{−1} = 0.  log_a, the forward's h,
+    dh: (B,S,R) float32 -> (d_log_a, d_b)."""
+    B, S, R = log_a.shape
+    a = torch.exp(log_a.float())
+    g = torch.zeros((B, R), dtype=torch.float32, device=log_a.device)
+    d_log_a = torch.empty((B, S, R), dtype=torch.float32,
+                          device=log_a.device)
+    d_b = torch.empty_like(d_log_a)
+    for t in range(S - 1, -1, -1):
+        g = dh[:, t] + (a[:, t + 1] * g if t + 1 < S else 0.0)
+        d_b[:, t] = g
+        d_log_a[:, t] = (g * a[:, t] * h[:, t - 1] if t > 0
+                         else torch.zeros_like(g))
+    return d_log_a, d_b
 
 
 def _matern52(a, b, log_ls, log_amp):

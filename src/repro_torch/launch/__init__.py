@@ -1,2 +1,3 @@
-"""Entry points of the port: the CLI verbs (``cli``), the LM server
-(``serve``) and its step functions (``steps``)."""
+"""Entry points of the port: the CLI verbs (``cli``), the LM trainer
+(``train``), the LM server (``serve``) and their step functions
+(``steps``)."""

@@ -1,11 +1,13 @@
-"""Grouped-query attention, global and sliding-window: prefill and decode.
+"""Grouped-query attention, global and sliding-window: training, prefill
+and decode.
 
 The port's copy of the GQA part of the reference's
-``models/attention.py``.  The prefill's self-attention goes through
-``ops.flash_attention`` — the hand-written CUDA kernel on the card, the
-dense oracle on the CPU — which computes what the reference's chunked
+``models/attention.py``.  Training's and the prefill's self-attention go
+through ``ops.flash_attention`` — the hand-written CUDA kernels forward
+and backward on the card, the dense oracle and its plain gradient on the
+CPU — which computes what the reference's chunked
 ``multihead_attention`` computes when positions are ``arange(S)``, as
-they always are in a prefill; its scores are float32 inside the kernel
+they always are there; its scores are float32 inside the kernel
 whatever the compute dtype.  Decode is plain torch, as the reference's is
 XLA: one query against the whole cache, float32 scores.  MLA and
 cross-attention are not ported yet (ROADMAP.md §1).
@@ -48,11 +50,13 @@ def dense3(p: Params, x: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
 
 
 def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, *, window: int = 0):
-    """Causal self-attention over a whole sequence (prefill).  x: (B,S,d);
-    positions: (S,) = arange(S), which is what the kernel assumes (its
-    query and key positions count from 0).  Returns (y, {"k", "v"}), the
-    keys and values the decode cache is built from."""
+                 cfg: ModelConfig, *, window: int = 0,
+                 return_kv: bool = False):
+    """Causal self-attention over a whole sequence (training / prefill).
+    x: (B,S,d); positions: (S,) = arange(S), which is what the kernel
+    assumes (its query and key positions count from 0).  Returns y, and
+    with ``return_kv`` (y, {"k", "v"}), the keys and values the decode
+    cache is built from."""
     hd = cfg.hd
     q = dense3(p["wq"], x, cfg.n_heads, hd)
     k = dense3(p["wk"], x, cfg.n_kv_heads, hd)
@@ -63,7 +67,9 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap)
     y = L.dense(p["wo"], out.reshape(*x.shape[:-1], -1))
-    return y, {"k": k, "v": v}
+    if return_kv:
+        return y, {"k": k, "v": v}
+    return y
 
 
 # ==========================================================================

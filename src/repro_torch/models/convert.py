@@ -9,6 +9,13 @@ the port's ``layers.dense`` applies as ``x @ w``, so no weight is
 transposed.  With it the two packages compute the same function on the
 same weights, which is how the tests hold one against the other.
 
+``train_state_from_reference(cfg, state, device)`` carries a training
+state across: the reference's ``{"params", "opt": {"m", "v", "step"}}``
+(``launch/steps.init_train_state``) into the port's, each of params, m
+and v unstacked as above; with ``population=True`` every leaf has a
+leading population axis (``core/vmap_trials.py``'s stacked state), kept
+in front of each unstacked layer's leaves.
+
 ``cnn_params_from_reference(tree, device)`` does the same for the §4 CNN
 (``models/cnn.py``): its conv weights go from the reference's HWIO to
 PyTorch's OIHW, its fully connected weights stay (in, out).
@@ -32,28 +39,48 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def unstack_groups(cfg: ModelConfig, groups: List[Dict[str, Any]]) -> List:
+def unstack_groups(cfg: ModelConfig, groups: List[Dict[str, Any]],
+                   population: bool = False) -> List:
     """The reference's per-group nests (``{str(j): leaves with a leading
     repeats dim}``, one per ``cfg.layer_groups()`` entry) -> one nest per
-    layer, in stack order.  Serves its parameters and its caches alike."""
+    layer, in stack order.  Serves its parameters and its caches alike;
+    with ``population`` the repeats dim is the second."""
     layers = []
     for (pattern, repeats), group in zip(cfg.layer_groups(), groups):
         for r in range(repeats):
+            idx = (slice(None), r) if population else r
             for j in range(len(pattern)):
-                layers.append(tree_map(lambda a, r=r: a[r], group[str(j)]))
+                layers.append(tree_map(lambda a, i=idx: a[i], group[str(j)]))
     return layers
 
 
 def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
-                          device="cpu") -> Dict[str, Any]:
+                          device="cpu", population: bool = False
+                          ) -> Dict[str, Any]:
     """The reference's ``LM.init`` pytree -> the port's parameters on
-    ``device``, in the leaves' own dtype."""
+    ``device``, in the leaves' own dtype (a leading population axis
+    kept when ``population``)."""
     conv = lambda a: _tensor(a, device)  # noqa: E731
     params = {name: tree_map(conv, sub) for name, sub in tree.items()
               if name != "groups"}
     params["layers"] = [tree_map(conv, layer) for layer in
-                        unstack_groups(cfg, tree["groups"])]
+                        unstack_groups(cfg, tree["groups"], population)]
     return params
+
+
+def train_state_from_reference(cfg: ModelConfig, state: Dict[str, Any],
+                               device="cpu", population: bool = False
+                               ) -> Dict[str, Any]:
+    """The reference's training state ``{"params", "opt": {"m", "v",
+    "step"}}`` -> the port's, on ``device``: params, m and v as
+    ``params_from_reference`` carries them, the step an int32 tensor
+    ((P,) with ``population``)."""
+    conv = lambda tree: params_from_reference(  # noqa: E731
+        cfg, tree, device, population)
+    opt = state["opt"]
+    return {"params": conv(state["params"]),
+            "opt": {"m": conv(opt["m"]), "v": conv(opt["v"]),
+                    "step": _tensor(opt["step"], device).to(torch.int32)}}
 
 
 def cnn_params_from_reference(tree: Dict[str, Any], device="cpu"

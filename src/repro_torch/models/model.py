@@ -1,6 +1,6 @@
 """The LM of the port, for the dense and hybrid families.
 
-The port's copy of the serving half of the reference's ``models/model.py``:
+The port's copy of the reference's ``models/model.py``:
   dense    decoder-only transformer (GQA attention, MLP)
   hybrid   Griffin-style (RG-LRU, RG-LRU, local-attn) stacks
 
@@ -8,15 +8,25 @@ The reference scans homogeneous layer groups whose parameters carry a
 leading ``repeats`` dim; eager PyTorch compiles nothing, so the port keeps
 one flat list of layers in stack order (``LM.specs``, ``params["layers"]``,
 ``cache["layers"]``), and ``models/convert.py`` unstacks reference weights
-into it.  Training (``loss``, remat) is not ported yet, nor are the MoE,
-MLA, encoder-decoder, VLM and xLSTM families (ROADMAP.md §1): ``LM``
-raises ``NotImplementedError`` for them.
+(and optimizer state) into it.  The MoE, MLA, encoder-decoder, VLM and
+xLSTM families are not ported yet (ROADMAP.md §1): ``LM`` raises
+``NotImplementedError`` for them.
 
-API (functions of plain dicts of tensors):
+API (functions of plain dicts of tensors; ``torch.func`` composes with
+``forward`` and ``loss`` when ``cfg.remat`` is "none"):
   init(seed, device, dtype) -> params
+  loss(params, batch) -> (scalar, metrics)         # train_step target
+  forward(params, batch) -> (logits, aux)
   prefill(params, batch, cache_len) -> (cache, last_logits)
   decode_step(params, cache, tokens) -> (logits, cache)
   init_cache(batch_size, cache_len, device) -> cache
+
+Training rematerializes as ``cfg.remat`` says, one layer at a time (the
+reference checkpoints a scanned group): "full" keeps only each layer's
+input (``torch.utils.checkpoint``, non-reentrant), "dots" also keeps the
+outputs of its matrix products (a selective-checkpoint policy, the
+counterpart of ``dots_saveable``), "none" keeps everything.  Under "full"
+every layer's forward, and so each of its kernels, runs twice a step.
 
 ``init`` and ``init_cache`` make their tensors on the CUDA card unless
 given ``device`` (``device.resolve``: no card and no ``device`` raises).
@@ -24,11 +34,14 @@ given ``device`` (``device.resolve``: no card and no ``device`` raises).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import attention as A
@@ -38,6 +51,33 @@ from repro_torch.models.common import (ATTN, LOCAL_ATTN, RGLRU,
                                        ModelConfig)
 
 Params = Dict[str, Any]
+
+
+class _TiedCast(torch.autograd.Function):
+    """A tied table cast to ``dtype`` once, handed out twice (the
+    embedding's and the unembedding's copy, one storage).  The backward
+    sums the two uses' gradients in the table's dtype (float32), as
+    autograd sums the
+    cotangents of the reference's two casts: summed at one cast they
+    would meet in ``dtype``.  Under ``torch.func.grad`` this also keeps
+    the backward to one table-sized float32 gradient (two, and their sum,
+    were the population's peak)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(table, dtype):
+        t = table.to(dtype)
+        return t, t.view_as(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dtype = inputs[0].dtype
+
+    @staticmethod
+    def backward(ctx, g_embed, g_unembed):
+        g = g_embed.to(ctx.dtype)
+        g.add_(g_unembed)
+        return g, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,21 +152,40 @@ def _init_layer(init: L.Init, spec: LayerSpec, cfg: ModelConfig) -> Params:
 
 
 def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
-               cache_len: int):
-    """Returns (x, the layer's decode-cache entry)."""
+               collect_cache: bool = False, cache_len: int = 0):
+    """Returns (x, the layer's decode-cache entry, {} unless
+    ``collect_cache``)."""
     eps = cfg.norm_eps
     h = L.apply_norm(p["ln1"], x, eps)
+    entry: Params = {}
     if spec.kind in (ATTN, LOCAL_ATTN):
         window = cfg.window if spec.kind == LOCAL_ATTN else 0
-        att, kv = A.attn_forward(p["attn"], h, positions, cfg, window=window)
-        entry = _pad_kv(kv, cache_len, window, cfg)
+        if collect_cache:
+            att, kv = A.attn_forward(p["attn"], h, positions, cfg,
+                                     window=window, return_kv=True)
+            entry = _pad_kv(kv, cache_len, window, cfg)
+        else:
+            att = A.attn_forward(p["attn"], h, positions, cfg, window=window)
         x = x + att
     else:
-        y, entry = R.rglru_forward(p["rglru"], h, cfg)
+        if collect_cache:
+            y, entry = R.rglru_forward(p["rglru"], h, cfg, return_cache=True)
+        else:
+            y = R.rglru_forward(p["rglru"], h, cfg)
         x = x + y
     if spec.ffn != "none":
         x = x + L.mlp(p["ffn"], L.apply_norm(p["ln2"], x, eps), cfg)
     return x, entry
+
+
+#: the matrix products whose outputs remat "dots" keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _pad_kv(kv: Params, cache_len: int, window: int, cfg) -> Params:
@@ -208,6 +267,19 @@ class LM:
         return params
 
     # ------------------------------------------------------------ helpers
+    def _maybe_remat(self, fn):
+        mode = self.cfg.remat
+        if mode == "none":
+            return fn
+        if mode == "dots":
+            ctx_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_dots)
+            return functools.partial(checkpoint, fn, use_reentrant=False,
+                                     context_fn=ctx_fn)
+        if mode == "full":
+            return functools.partial(checkpoint, fn, use_reentrant=False)
+        raise ValueError(f"remat {mode!r} is not none, dots or full")
+
     def _embed_in(self, params, tokens):
         cfg = self.cfg
         x = L.embed(params["embed"], tokens, cfg.compute_dtype)
@@ -216,11 +288,47 @@ class LM:
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
         return x
 
-    def _unembed(self, params, x):
+    def _unembed(self, params, x, table=None):
         cfg = self.cfg
-        table = params["embed" if cfg.tie_embeddings else "unembed"]
+        if table is None:
+            table = params["embed" if cfg.tie_embeddings else "unembed"]
         x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
         return L.unembed(table, x, softcap=cfg.logit_softcap)
+
+    # ------------------------------------------------------------ training
+    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """batch: {"tokens": (B,S)} -> (logits (B,S,V) in the compute
+        dtype, the MoE aux loss: 0 for the families ported)."""
+        cfg = self.cfg
+        out_table = None
+        table = params["embed"]["table"]
+        if cfg.tie_embeddings and table.dtype != cfg.compute_dtype:
+            # one compute-dtype copy of a float32 tied table (the
+            # population's) for both its uses, their gradients summed in
+            # float32 as the reference's two casts sum them (_TiedCast)
+            emb, out = _TiedCast.apply(table, cfg.compute_dtype)
+            params = dict(params, embed={"table": emb})
+            out_table = {"table": out}
+        x = self._embed_in(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+
+        def layer(spec, lp, x):
+            return _layer_fwd(spec, lp, x, positions, self.cfg)[0]
+
+        step = self._maybe_remat(layer)
+        for spec, lp in zip(self.specs, params["layers"]):
+            x = step(spec, lp, x)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._unembed(params, x, out_table), aux
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """batch: {"tokens", "labels"} (B,S) -> (mean cross entropy plus
+        the weighted aux loss, {"ce", "aux", "tokens"})."""
+        logits, aux = self.forward(params, batch)
+        ce = L.cross_entropy(logits, batch["labels"])
+        total = ce + self.cfg.router_aux_weight * aux
+        return total, {"ce": ce, "aux": aux,
+                       "tokens": (batch["labels"] >= 0).sum()}
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int,
@@ -244,7 +352,7 @@ class LM:
         layers: List[Params] = []
         for spec, lp in zip(self.specs, params["layers"]):
             x, entry = _layer_fwd(spec, lp, x, positions, self.cfg,
-                                  cache_len)
+                                  collect_cache=True, cache_len=cache_len)
             layers.append(entry)
         logits = self._unembed(params, x[:, -1:])[:, 0]
         cache = {"layers": layers,

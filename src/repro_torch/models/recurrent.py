@@ -1,10 +1,11 @@
 """The RG-LRU temporal-mixing block (Griffin / RecurrentGemma).
 
 The port's copy of the RG-LRU part of the reference's
-``models/recurrent.py``.  The prefill runs the linear recurrence through
-``ops.rglru_scan`` — the hand-written CUDA scan on the card, a sequential
-loop on the CPU — where the reference runs a parallel
-``associative_scan``; decode is the O(1) state update.  xLSTM's mLSTM and
+``models/recurrent.py``.  Training and the prefill run the linear
+recurrence through ``ops.rglru_scan`` — the hand-written CUDA scan
+forward and backward on the card, sequential loops on the CPU — where
+the reference runs a parallel ``associative_scan`` (the same function);
+decode is the O(1) state update.  xLSTM's mLSTM and
 sLSTM blocks are not ported yet (ROADMAP.md §1).
 
 Deviation from the source, as in the reference: RG-LRU gates are dense
@@ -83,16 +84,20 @@ def _rglru_coeffs(p, xr):
     return log_a, b
 
 
-def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """Prefill pass.  x: (B,S,d) -> (y, the decode cache): the last state
-    h (float32) and the conv buffer, ``in_x`` of the last W-1 inputs,
-    left-padded with zeros when the prompt is shorter."""
+def rglru_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  return_cache: bool = False):
+    """Training / prefill pass.  x: (B,S,d) -> y, and with
+    ``return_cache`` (y, the decode cache): the last state h (float32)
+    and the conv buffer, ``in_x`` of the last W-1 inputs, left-padded
+    with zeros when the prompt is shorter."""
     gate = L.gelu(L.dense(p["in_gate"], x))
     pre = L.dense(p["in_x"], x)
     xr = causal_conv(p["conv"], pre)
     log_a, b = _rglru_coeffs(p, xr)
     h = ops.rglru_scan(log_a, b)
     y = L.dense(p["out"], h.to(x.dtype) * gate)
+    if not return_cache:
+        return y
     # copies, not views: a view would keep the prompt-long h and in_x
     # alive for as long as the cache (3.3 GB over recurrentgemma-2b's
     # 18 RG-LRU layers at batch 4 x 3000)

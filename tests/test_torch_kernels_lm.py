@@ -16,6 +16,15 @@ stay within it.  The RG-LRU kernel's chunked order (64-step tiles,
 16-step sub-chunks, the carry passed from tile to tile) is emulated too
 and held against the JAX oracle and the Pallas kernel.
 
+The backward: the plain gradients (``flash_attention_bwd_ref``,
+``rglru_scan_bwd_ref``) against ``jax.vjp`` of the JAX oracles; the
+``autograd.Function``s of ``ops`` on the CPU against torch.autograd
+through the plain forwards; their vmap rules under
+``torch.func.vmap(torch.func.grad(...))`` (one wrapper call for every
+trial) against a loop over trials; and the wrappers' refusal of inputs
+that require grad outside their Function.  The backward kernels, like
+the forward ones, run only on the card.
+
 Tolerances: float32 results 2e-5 absolute on O(1) outputs (both sides
 compute in float32, in other orders); bfloat16 results 2e-2 absolute —
 both sides compute in float32 from the same bfloat16 inputs and round
@@ -395,3 +404,238 @@ def test_chunked_scan_order_matches_reference(B, S, R):
     pal = np.asarray(pallas_rglru(jnp.asarray(la), jnp.asarray(b), bt=32,
                                   bf=64, interpret=True))
     np.testing.assert_allclose(got, pal, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ the backward
+#: float32 gradients against jax.vjp of the JAX oracle: both sides dense
+#: float32 in other orders, so 2e-5 of each tensor's largest magnitude
+BWD_RTOL = 2e-5
+
+
+def _bwd_inputs(case, seed):
+    B, Sq, Skv, H, K, D = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D), (B, Sq, H, D))]
+
+
+def _close_rel(got, want, rtol):
+    got, want = _f32(got), _f32(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= rtol * max(np.abs(want).max(), 1e-30), (err, rtol)
+
+
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_bwd_oracle_matches_jax_vjp(name):
+    """``flash_attention_bwd_ref`` from the oracle's own lse and output,
+    against ``jax.vjp`` of the JAX oracle: causal, windowed, softcapped,
+    grouped-query and ragged (Sq ≠ Skv) cases."""
+    case = FLASH_CASES[name]
+    causal, window, softcap = case[6:]
+    q, k, v, do = _bwd_inputs(case, seed=7)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, **kw),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True, **kw)
+    got = ref.flash_attention_bwd_ref(tq, tk, tv, o, lse, tdo, **kw)
+    for g, w in zip(got, want):
+        _close_rel(g, w, BWD_RTOL)
+
+
+@pytest.mark.parametrize("B,S,R", SCAN_SHAPES)
+def test_rglru_bwd_oracle_matches_jax_vjp(B, S, R):
+    """``rglru_scan_bwd_ref`` against ``jax.vjp`` of the sequential JAX
+    oracle (float32, the same recurrence backwards: 1e-5 of the largest
+    gradient)."""
+    la, b = _scan_inputs(B, S, R, seed=S + 1)
+    dh = np.random.default_rng(S).normal(0, 1, (B, S, R)).astype(np.float32)
+    h, vjp = jax.vjp(jref.rglru_scan_ref, jnp.asarray(la), jnp.asarray(b))
+    want = vjp(jnp.asarray(dh))
+    got = ref.rglru_scan_bwd_ref(torch.from_numpy(la),
+                                 torch.from_numpy(np.array(h)),
+                                 torch.from_numpy(dh))
+    for g, w in zip(got, want):
+        _close_rel(g, w, 1e-5)
+
+
+def test_lse_is_the_row_log_sum_exp():
+    """The forward's lse: each row's probabilities exp(s - lse) sum to 1,
+    so the backward recomputes the forward's softmax from it."""
+    case = FLASH_CASES["gqa_ragged"]
+    causal, window, softcap = case[6:]
+    _, (q, k, v) = _flash_inputs(case, "f32", seed=2)
+    o, lse = ops._FlashAttention.apply(q, k, v, causal, window, softcap)
+    assert torch.equal(o, ops.flash_attention(q, k, v, causal=causal,
+                                              window=window, softcap=softcap))
+    B, Sq, H, D = q.shape
+    s, _ = ref._flash_scores(q, k, causal, window, softcap)
+    p = torch.exp(s - lse.reshape(s.shape[:-1])[..., None])
+    np.testing.assert_allclose(p.sum(-1).numpy(), 1.0, rtol=0, atol=1e-5)
+
+
+AUTOGRAD_CASES = ["gqa_ragged", "mqa_window", "softcap", "sq_gt_skv_window",
+                  "noncausal_window"]
+
+
+@pytest.mark.parametrize("name", AUTOGRAD_CASES)
+def test_flash_function_gradients_match_autograd_of_the_oracle(name):
+    """``ops.flash_attention``'s autograd.Function on the CPU (the plain
+    forward, lse saved, the plain backward) against torch.autograd
+    through the dense oracle itself: float32, 2e-5 of the largest
+    gradient."""
+    case = FLASH_CASES[name]
+    causal, window, softcap = case[6:]
+    q, k, v, do = (torch.from_numpy(a) for a in _bwd_inputs(case, seed=9))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*ins, **kw), ins, do)
+    ins2 = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention_ref(*ins2, **kw), ins2,
+                               do)
+    for g, w in zip(got, want):
+        _close_rel(g, w, BWD_RTOL)
+
+
+def test_rglru_function_gradients_match_autograd_of_the_oracle():
+    la, b = (torch.from_numpy(a) for a in _scan_inputs(2, 70, 24, seed=4))
+    dh = torch.randn(2, 70, 24, generator=torch.Generator().manual_seed(0))
+    ins = [t.clone().requires_grad_() for t in (la, b)]
+    got = torch.autograd.grad(ops.rglru_scan(*ins), ins, dh)
+    ins2 = [t.clone().requires_grad_() for t in (la, b)]
+    want = torch.autograd.grad(ref.rglru_scan_ref(*ins2), ins2, dh)
+    for g, w in zip(got, want):
+        _close_rel(g, w, 1e-5)
+
+
+class _Calls:
+    """Counts the calls of a kernel wrapper (the wrappers' launch counters
+    move only on the card)."""
+
+    def __init__(self, fn):
+        self.fn, self.n = fn, 0
+
+    def __call__(self, *args, **kwargs):
+        self.n += 1
+        return self.fn(*args, **kwargs)
+
+
+def test_vmap_rule_folds_the_trials_into_one_call(monkeypatch):
+    """Under ``torch.func.vmap`` of ``torch.func.grad`` each Function's
+    vmap rule folds the trial axis into the batch: one wrapper call for
+    the forward and one for the backward, for all P trials, equal to a
+    loop over the trials (a mapped q and v, a shared k)."""
+    P = 3
+    case = FLASH_CASES["gqa_ragged"]
+    causal, window, softcap = case[6:]
+    rng = np.random.default_rng(11)
+    B, S, _, H, K, D = case[:6]
+    q = torch.from_numpy(rng.standard_normal((P, B, S, H, D))
+                         .astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, S, K, D)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((P, B, S, K, D))
+                         .astype(np.float32))
+    la = torch.from_numpy(-np.abs(rng.normal(0, 0.5, (P, B, S, K * D)))
+                          .astype(np.float32))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+
+    def loss(q, v, la):
+        o = ops.flash_attention(q, k, v, **kw)
+        h = ops.rglru_scan(la, o.reshape(B, S, -1)[..., :K * D])
+        return (o.square().sum() + h.sin().sum())
+
+    calls = {n: _Calls(getattr(m, n)) for m, n in
+             ((kfa, "flash_attention"), (kfa, "flash_attention_bwd"),
+              (krg, "rglru_scan"), (krg, "rglru_scan_bwd"))}
+    for n, c in calls.items():
+        monkeypatch.setattr(kfa if n.startswith("flash") else krg, n, c)
+    got = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(q, v, la)
+    assert {n: c.n for n, c in calls.items()} == {n: 1 for n in calls}
+    for i in range(P):
+        want = torch.func.grad(loss, argnums=(0, 1, 2))(q[i], v[i], la[i])
+        for g, w in zip(got, want):
+            _close_rel(g[i], w, 1e-5)
+
+
+def test_flash_attention_asks_for_lse_only_under_a_gradient(monkeypatch):
+    """``ops.flash_attention`` has the kernel write the row log-sum-exp
+    only where a backward may read it: serving (no input needs a graph)
+    calls the wrapper as before, with no lse; autograd and a
+    ``torch.func`` transform go through the Function, which saves it."""
+    _, (q, k, v) = _flash_inputs(FLASH_CASES["mha_causal"], "f32")
+    asked = []
+    real = kfa.flash_attention
+
+    def spy(*a, return_lse=False, **kw):
+        asked.append(return_lse)
+        return real(*a, return_lse=return_lse, **kw)
+
+    monkeypatch.setattr(kfa, "flash_attention", spy)
+    want = real(q, k, v)
+    assert torch.equal(ops.flash_attention(q, k, v), want)
+    with torch.no_grad():
+        ops.flash_attention(q.clone().requires_grad_(), k, v)
+    assert asked == [False, False]
+    ops.flash_attention(q.clone().requires_grad_(), k, v).sum().backward()
+    torch.func.grad(lambda q: ops.flash_attention(q, k, v).sum())(q)
+    torch.func.vmap(lambda q: ops.flash_attention(q, k, v))(q[None])
+    assert asked == [False, False, True, True, True]
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd",
+                                  "rglru_scan", "rglru_scan_bwd"])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(name):
+    """A wrapper records no graph, so reached with inputs that require
+    grad outside its autograd.Function it raises (rather than hand back
+    an output that silently gives them no gradient); with grad off, or
+    through ``ops``, the same inputs are fine."""
+    _, (q, k, v) = _flash_inputs(FLASH_CASES["mha_causal"], "f32")
+    la, b = (torch.from_numpy(a) for a in _scan_inputs(1, 30, 16))
+    o, lse = kfa.flash_attention(q, k, v, return_lse=True)
+    calls = {
+        "flash_attention": lambda g: kfa.flash_attention(g(q), k, v),
+        "flash_attention_bwd": lambda g: kfa.flash_attention_bwd(
+            q, k, g(v), o, lse, o),
+        "rglru_scan": lambda g: krg.rglru_scan(la, g(b)),
+        "rglru_scan_bwd": lambda g: krg.rglru_scan_bwd(g(la), b, b),
+    }
+    grad = lambda t: t.clone().requires_grad_()  # noqa: E731
+    with pytest.raises(RuntimeError, match="records no graph"):
+        calls[name](grad)
+    with torch.no_grad():
+        calls[name](grad)
+
+
+def test_cuda_backward_kernels_match_plain_versions():
+    """The two backward kernels against their plain versions on the card,
+    every case above in float32 and bfloat16 (the plain version on the
+    float32 values of the same inputs; 2e-5 of the largest gradient in
+    float32, 2e-2 in bfloat16: one rounding of the output), and the scan's
+    at the shapes above; the counters move once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    n0 = kfa.flash_attention_bwd_launches.count
+    for name, case in FLASH_CASES.items():
+        kw = dict(zip(("causal", "window", "softcap"), case[6:]))
+        for dtype, (_, _, tdt, _) in DTYPES.items():
+            q, k, v, do = (torch.from_numpy(a).to(dev, tdt)
+                           for a in _bwd_inputs(case, seed=3))
+            o, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+            got = kfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            want = ref.flash_attention_bwd_ref(
+                *(t.float() for t in (q, k, v, o)), lse, do.float(), **kw)
+            for g, w in zip(got, want):
+                _close_rel(g.cpu(), w.cpu(),
+                           BWD_RTOL if dtype == "f32" else 2e-2)
+    assert kfa.flash_attention_bwd_launches.count == n0 + 2 * len(
+        FLASH_CASES)
+    for B, S, R in SCAN_SHAPES + SCAN_TILE_EDGES:
+        la, b = (torch.from_numpy(a).to(dev) for a in _scan_inputs(B, S, R))
+        dh = torch.randn(B, S, R, device=dev)
+        h = krg.rglru_scan(la, b)
+        for g, w in zip(krg.rglru_scan_bwd(la, h, dh),
+                        ref.rglru_scan_bwd_ref(la, h, dh)):
+            _close_rel(g.cpu(), w.cpu(), 1e-5)

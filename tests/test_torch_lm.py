@@ -188,7 +188,8 @@ def test_rglru_forward_cache_and_decode(S):
     p = JR.init_rglru_block(jax.random.key(3), jc)
     tp = _t(p)
     x = _x((2, S, 64))
-    y, cache = TR.rglru_forward(tp, torch.from_numpy(x), tc)
+    y, cache = TR.rglru_forward(tp, torch.from_numpy(x), tc,
+                                return_cache=True)
     jy, jcache = JR.rglru_forward(p, jnp.asarray(x), jc, return_cache=True)
     _close(y, jy, ATOL_LAYER)
     _close(cache, jcache, ATOL_LAYER)
@@ -209,7 +210,7 @@ def test_attn_forward(window):
     p = JA.init_attention(jax.random.key(4), jc)
     x = _x((2, 20, 64))
     y, kv = TA.attn_forward(_t(p), torch.from_numpy(x), torch.arange(20), tc,
-                            window=window)
+                            window=window, return_kv=True)
     jy, jkv = JA.attn_forward(p, jnp.asarray(x), jnp.arange(20), jc,
                               window=window, return_kv=True)
     _close(y, jy, ATOL_LAYER)
