@@ -14,9 +14,10 @@ script exits non-zero and prints no result):
    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all at once);
    ptxas's registers and spill bytes for each compiled function, and the
    count of ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in
-   the flash-attention library's SASS (``cuobjdump -sass``) and of
-   ``LDGSTS`` (cp.async) in gp_ei's and rglru_scan's, which fails the run
-   when any is 0.
+   the flash-attention library's SASS (``cuobjdump -sass``), in the whole
+   library and in each of its bf16 functions (the forward, the backward's
+   dK/dV and dQ kernels, one a head dim), and of ``LDGSTS`` (cp.async) in
+   gp_ei's and rglru_scan's, which fails the run when any is 0.
 2. kernels against their plain PyTorch versions on the card —
    ``gp_nll_chol``, ``gp_fit_grads`` through the autograd backward, and
    ``gp_ei`` over k lanes x b bucket (ragged masks, inert all-zero-mask
@@ -141,7 +142,9 @@ script exits non-zero and prints no result):
    was left and reports the card's memory, as the later phases do) —
    (a) the two backward kernels against their plain versions:
    ``flash_attention_bwd`` at the train shape (B 1, S 3000, H 10, K 1,
-   D 256, window 2048, no softcap) in bf16 and f32, at S = 1, 65 and
+   D 256, window 2048, no softcap) in bf16 and f32, in bf16 at D 256
+   with two KV heads and two batches (H 8, K 2, S 1000, window 512) and
+   at the population's folded shape (B 3, S 1024), at S = 1, 65 and
    1000, grouped-query (H 4, K 2, D 64), windows 0 and 32, softcap 30
    (q, k of std 4 so the cap bends), D 16 and 128 and non-causal, held
    element by element to the plain float32 backward of the same inputs
@@ -276,6 +279,13 @@ CNN_LIMIT = 1e-4
 #: cp.async staging (LDGSTS)
 SASS_OPS = {"flash_attention": ("HGMMA", "UTMALDG"), "gp_ei": ("LDGSTS",),
             "rglru_scan": ("LDGSTS",)}
+#: and each function of a library whose name holds one of these parts, one
+#: instantiation a head dim the kernels take: the bf16 attention kernels,
+#: the forward and the backward's dK/dV and dQ, each on wgmma fed by TMA
+SASS_FUNCTION_OPS = {"flash_attention": {
+    "flash_tc_kernel": ("HGMMA", "UTMALDG"),
+    "dkdv_tc_kernel": ("HGMMA", "UTMALDG"),
+    "dq_tc_kernel": ("HGMMA", "UTMALDG")}}
 
 RESULTS = {}
 
@@ -403,6 +413,7 @@ def card_line() -> str:
 def phase_card():
     card = card_line()
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     t0 = time.perf_counter()
     _build.build_all()
     wall = time.perf_counter() - t0
@@ -411,8 +422,8 @@ def phase_card():
          build_wall_s=wall, build_s=dict(_build.build_seconds))
     for name, log in _build.ptxas_report.items():
         emit("ptxas", kernel=name, functions=ptxas_functions(log))
-    # the bf16 flash kernel must run on the tensor cores, fed by TMA, and
-    # gp_ei and rglru_scan must stage through cp.async
+    # the bf16 flash kernels, forward and backward, must run on the tensor
+    # cores, fed by TMA, and gp_ei and rglru_scan must stage through cp.async
     for lib, ops in SASS_OPS.items():
         sass = subprocess.run(
             [_build.tool("cuobjdump"), "-sass",
@@ -423,7 +434,32 @@ def phase_card():
                   for op in ops}
         emit("sass", library=lib, counts=counts)
         check(all(counts.values()), f"{lib} SASS lacks {counts}")
+        functions = sass_functions(sass.stdout)
+        for part, fops in SASS_FUNCTION_OPS.get(lib, {}).items():
+            found = {name: {op: len(re.findall(rf"\b{op}\b", text))
+                            for op in fops}
+                     for name, text in functions.items() if part in name}
+            emit("sass", library=lib, function=part, counts=found)
+            check(len(found) == len(HEAD_DIMS),
+                  f"{lib}: {len(found)} functions named {part}, expected "
+                  f"one a head dim of {HEAD_DIMS}")
+            check(all(all(c.values()) for c in found.values()),
+                  f"{lib}: a {part} lacks one of {fops}: {found}")
     return card
+
+
+def sass_functions(sass: str) -> dict:
+    """``cuobjdump -sass`` output cut into its functions: mangled name ->
+    that function's instructions."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return {n: "\n".join(lines) for n, lines in out.items()}
 
 
 def ptxas_functions(log: str):
@@ -2474,10 +2510,15 @@ def phase_device_times():
 # ------------------------------------------------------------- phase 8
 #: (name, B, S, H, K, D, causal, window, softcap, dtype) of phase 8a:
 #: the first two are the train shape of recurrentgemma-2b's local
-#: attention (batch 1 x 3000, window 2048, no attention softcap)
+#: attention (batch 1 x 3000, window 2048, no attention softcap);
+#: "gqa_d256" sums the bf16 kernel's per-head shares over several KV heads
+#: and batches at the largest head dim, "population" is the folded shape
+#: phase 8d launches (3 trials x 1024)
 BWD_CASES = (
     ("train", 1, 3000, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
     ("train_f32", 1, 3000, 10, 1, 256, True, 2048, 0.0, "float32"),
+    ("gqa_d256", 2, 1000, 8, 2, 256, True, 512, 0.0, "bfloat16"),
+    ("population", 3, 1024, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
     ("s1", 2, 1, 4, 2, 64, True, 0, 0.0, "bfloat16"),
     ("s65", 2, 65, 4, 2, 64, True, 32, 0.0, "bfloat16"),
     ("s1000_f32", 1, 1000, 4, 2, 64, True, 0, 0.0, "float32"),
@@ -2570,7 +2611,11 @@ def bwd_excess(got, want32, dtype: str) -> float:
 def flash_bwd_work(B, S, H, K, D, causal, window, elem):
     """(FLOPs, bytes) the attention backward needs: 10·D multiply-adds a
     visible pair a head (S, dP, dV, dK, dQ), 2.5x the forward's; q, k, v,
-    o, dO and lse read once, dq, dk, dv written once."""
+    o, dO and lse read once, dq, dk, dv written once.  The bf16 kernels
+    issue twice this product work (P and dS split in two bf16 parts
+    double dV, dK and dQ; S and dP are computed in both the dK/dV and the
+    dQ kernel) on whole 64 x 64 tiles of the band: the bound stays the
+    minimum work."""
     flops = 2 * 5 * D * B * H * visible_pairs(S, S, causal, window)
     nbytes = elem * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S
     return flops, nbytes

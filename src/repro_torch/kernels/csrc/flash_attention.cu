@@ -863,54 +863,82 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
 // ----------------------------------------------------------- backward
 // The gradient of the forward above, written for this port: the Pallas
 // kernel has no backward (the JAX package trains through XLA attention).
-// Simple and right first, on the CUDA cores for both input types; the
-// bound is operations, 10*D multiply-adds a visible (query, key) pair a
-// head (S = Q.K^T, dP = dO.V^T, dV, dK, dQ), 2.5x the forward's.
+// dS = P (dP - D) (1 - tanh^2 under a softcap) / sqrt(D), P = exp(s - lse)
+// from the forward's row log-sum-exp, masked pairs P = 0; dV = P^T.dO,
+// dK = dS^T.Q, dQ = dS.K; dK and dV summed over the H/K query heads of
+// each KV head.  Three steps, the kernels chosen by the input type (never
+// on failure):
 //
 //  * D_i = rowsum(dO_i * O_i), float32, by `dot_kernel`: one warp a
-//    (b, q, h) row, into (B, H, Sq).
-//  * dK, dV by `dkdv_kernel`: one block per (tile of kB keys, KV head,
-//    batch).  It walks the H/K query heads of its KV head and the query
-//    tiles of its keys' causal/window band, recomputes P = exp(s - lse)
-//    from q, k and the softcap, and keeps dK and dV of its keys in
-//    registers, so it owns them and needs no atomics.
-//  * dQ by `dq_kernel`: one block per (tile of kB query rows, query head,
-//    batch), walking the key tiles of its rows' band.
-//  Tiles are float32 in shared memory (rows padded by one float), read
-//  from the input type; sums are float32; the outputs are written once,
-//  in the input type.  Thread t owns rows 2(t/16), 2(t/16)+1 of a tile
-//  and columns t%16 + 16j.  dS = P (dP - D) (1 - tanh^2 under a softcap)
-//  / sqrt(D); masked pairs get P = 0.
+//    (b, q, h) row, into (B, H, Sq).  Bytes-bound, both types.
+//
+// bfloat16 — on the tensor cores, `wgmma` fed by TMA, with the forward's
+// tensor maps, descriptors, fences and `mbarrier` rings (namespace tc).
+// What bounds it: operations, 10*D multiply-adds a visible (query, key)
+// pair a head at the least (S, dP, dV, dK, dQ; 2.5x the forward's).
+//  * dK, dV by `dkdv_tc_kernel`: one block of three warpgroups per (64
+//    keys, query head, batch), the heads fastest in the grid (the G = H/K
+//    heads of a KV head read its K and V tiles from L2 side by side).  At
+//    the train shape (S 3000, H 10, K 1) that is 47 x 10 = 470 blocks on
+//    132 SMs, where one block per (keys, KV head) walking its G heads in
+//    series would give 47.  Warpgroup 0 is the producer (24 registers):
+//    K and V of the block's keys once, then Q and dO of each 64-row query
+//    tile of the keys' causal/window band through a ring of 2 stages.
+//    The products are transposed, keys as wgmma's M, so that P^T and
+//    dS^T come out of the accumulator as the next product's A fragment:
+//    warpgroup 1 computes S^T = K.Q^T (`ss`), P^T, and dV += P^T.dO
+//    (`rs`, dO read MN-major from the tile S^T read K-major); warpgroup 2
+//    computes dP^T = V.dO^T (`ss`), and dK += dS^T.Q (`rs`).  Warpgroup 1
+//    hands P^T (1 - tanh^2) / sqrt(D) to warpgroup 2 through 16 KB of
+//    shared memory (each thread's 32 values, at the same fragment
+//    positions in both warpgroups; an `mbarrier` pair guards it).  Each
+//    block writes float32 partial dK and dV of its head into (B, Skv, K,
+//    G, D) scratch; `sum_splits_kernel` sums the G heads in a fixed order
+//    (so a run repeats bit for bit) and casts to bf16.
+//  * dQ by `dq_tc_kernel`: one block of three warpgroups per (query head,
+//    2 x 64 query rows, batch), as the forward: Q and dO of both
+//    consumers' rows resident; K tiles through a ring of 2 stages and V
+//    tiles through one of 2 (1 at D = 256).  Each consumer computes
+//    S = Q.K^T and dP = dO.V^T (`ss`), dS in registers, and dQ += dS.K
+//    (`rs`, K read MN-major from the tile S read K-major); it releases V
+//    as soon as dP is done.
+//  * Numerics: Q, K, V and dO are bf16, so S and dP are exact products
+//    summed in float32.  P and dS are float32 and go into the second
+//    products split in two bf16 parts (`split2`, about 16 bits): one bf16
+//    rounding of them breaks the element-wise limit chip_smoke.py holds
+//    the gradients to, in every case of the CPU emulation in
+//    tests/test_torch_kernels_lm.py, which holds the split within it.  The
+//    split doubles dV, dK and dQ, so the two kernels issue 2 + 4 + 2 + 2
+//    = 10 units of D-wide product work a tile pair against the minimum
+//    of 5: twice the bound's work.  The band walk visits only tiles of
+//    the causal/window band and masks element by element only on tiles
+//    that the band or the ends of Sq and Skv cut; TMA's zero fill stands
+//    in for the ragged tails.
+//  * Budget at D = 256.  dK/dV: shared memory K 32 KB + V 32 KB + 2
+//    stages x (Q 32 KB + dO 32 KB) + the 16 KB hand-over = 208 KB (+1 KB
+//    alignment slack, barriers); registers a consumer thread: its 64 x
+//    256 float32 accumulator (dV or dK, one warpgroup each: 128), the 64
+//    x 64 scores (32), their bf16 hi/lo fragments (32) and the 16
+//    per-query lse or D values.  dQ: Q 2 x 32 KB + dO 2 x 32 KB + K 2 x
+//    32 KB + V 1 x 32 KB = 224 KB; registers: the dQ accumulator (128),
+//    S and dP (64), the fragments (32), 16 short of the cap for the rest
+//    (ptxas spills 32 bytes a thread there; none at D <= 128, none in
+//    dK/dV).  Consumers `setmaxnreg` to 240, the producer to 24:
+//    2 x 128 x 240 + 128 x 24 = 64 512 of 65 536.
+//
+// float32 — on the CUDA cores, off the train path: `dkdv_kernel` one
+// block per (tile of kB keys, KV head, batch) walking the H/K query heads
+// of its KV head and the query tiles of its band, dK and dV in registers
+// (no atomics, no scratch); `dq_kernel` one block per (kB query rows,
+// query head, batch).  Tiles float32 in shared memory, rows padded by one
+// float; thread t owns rows 2(t/16), 2(t/16)+1 of a tile and columns
+// t%16 + 16j.
 namespace bwd {
-
-constexpr int kB = 32;         // query rows or keys a tile
-constexpr int kThreads = 256;  // 16 row pairs x 16 column lanes
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-template <int D>
-struct Smem {
-  static constexpr int kStride = D + 1;               // padded tile rows
-  static constexpr int kTile = kB * kStride;          // floats a D-wide tile
-  static constexpr int kScore = kB * (kB + 1);        // floats a score tile
-  // Q, dO, K, V tiles, P and dS, lse and D of the query rows
-  static constexpr size_t kBytes =
-      (4 * (size_t)kTile + 2 * kScore + 2 * kB) * sizeof(float);
-  static_assert(kBytes <= kMaxSmem, "tiles exceed a block's shared memory");
-};
 
 // D_i = sum_d dO[i, d] O[i, d] for every row i = (b, q, h), into
 // dvec (B, H, Sq).
@@ -937,26 +965,545 @@ dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
-// Rows [row0, row0 + kB) of head `head` of x (B, S, nh, D) into a padded
-// float tile; rows past S are zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const T* __restrict__ x, int b,
-                                          int row0, int S, int nh, int head) {
-  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const int s = row0 + r;
-    dst[r * Smem<D>::kStride + c] =
-        s < S ? to_f(x[(((size_t)b * S + s) * nh + head) * D + c]) : 0.0f;
-  }
-}
-
 __device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Skv,
                                         int causal, int window) {
   bool ok = qp < Sq && kp < Skv;
   if (causal) ok = ok && qp >= kp;
   if (window) ok = ok && (qp - kp) < window;
   return ok;
+}
+
+// ------------------------------------------------- bfloat16, tensor cores
+constexpr int kRows = tc::kRows;  // keys or query rows a tile: 64
+constexpr int kXFloats = 32 * 128;  // the hand-over: 32 values a thread
+
+// acc[64 x 64] = A[64 x D] . B[64 x D]^T, both tiles K-major (TMA's
+// layout of 64 rows of D): D/16 `wgmma` m64n64k16.
+template <int D>
+__device__ __forceinline__ void mma_ss(float* acc, uint32_t a_tile,
+                                      uint32_t b_tile) {
+  using C = tc::Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk * 16) / C::kBoxCols * C::kBoxBytes +
+                         (kk * 16) % C::kBoxCols * 2;
+    tc::wgmma_ss_n64(acc,
+                     tc::sdesc(a_tile + off, 16, 8 * C::kRowBytes, C::kLayout),
+                     tc::sdesc(b_tile + off, 16, 8 * C::kRowBytes, C::kLayout),
+                     kk > 0);
+  }
+}
+
+// acc[64 x D] += (hi + lo)[64 x 64] . B[64 x D]: the A fragments of 4
+// k-steps of 16, B read MN-major from a tile of 64 rows of D.
+template <int D>
+__device__ __forceinline__ void mma_rs(float* acc, const uint32_t* hi,
+                                      const uint32_t* lo, uint32_t b_tile) {
+  using C = tc::Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = tc::sdesc(b_tile + kk * 16 * C::kRowBytes,
+                                  C::kBoxBytes, 8 * C::kRowBytes, C::kLayout);
+    tc::wgmma_pv<D>(acc, hi + 4 * kk, db);
+    tc::wgmma_pv<D>(acc, lo + 4 * kk, db);
+  }
+}
+
+// A m64n64 float32 accumulator as the bf16 A fragments of 4 k-steps of
+// 16 columns, each value split in hi = bf16(x) and lo = bf16(x - hi).
+__device__ __forceinline__ void to_frags(const float* x, uint32_t* hi,
+                                         uint32_t* lo) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int r = 4 * (j / 2) + 2 * (j % 2);
+    tc::split2(x[4 * j], x[4 * j + 1], hi[r], lo[r]);
+    tc::split2(x[4 * j + 2], x[4 * j + 3], hi[r + 1], lo[r + 1]);
+  }
+}
+
+template <int D>
+struct KvCfg {
+  using C = tc::Cfg<D>;
+  static constexpr int kStages = 2;  // Q/dO ring depth
+  static constexpr int kKOff = 0;
+  static constexpr int kVOff = C::kTileBytes;
+  static constexpr int kQOff = 2 * C::kTileBytes;
+  static constexpr int kDoOff = kQOff + kStages * C::kTileBytes;
+  static constexpr int kXOff = kDoOff + kStages * C::kTileBytes;
+  static constexpr int kBarOff = kXOff + kXFloats * 4;
+  // + the barriers (K/V, full and empty per stage, hand-over full and
+  // empty) + slack to align to 1 KB
+  static constexpr size_t kBytes = kBarOff + 8 * (3 + 2 * kStages) + 1024;
+  static_assert(kBytes <= kMaxSmem, "tiles exceed a block's shared memory");
+};
+
+template <int D>
+struct QCfg {
+  using C = tc::Cfg<D>;
+  static constexpr int kKStages = 2;
+  static constexpr int kVStages = D == 256 ? 1 : 2;
+  static constexpr int kQOff = 0;  // both consumers' Q, then their dO
+  static constexpr int kDoOff = tc::kConsumers * C::kTileBytes;
+  static constexpr int kKOff = 2 * tc::kConsumers * C::kTileBytes;
+  static constexpr int kVOff = kKOff + kKStages * C::kTileBytes;
+  static constexpr int kBarOff = kVOff + kVStages * C::kTileBytes;
+  // + the barriers (Q/dO, K full and empty, V full and empty) + slack
+  static constexpr size_t kBytes =
+      kBarOff + 8 * (1 + 2 * kKStages + 2 * kVStages) + 1024;
+  static_assert(kBytes <= kMaxSmem, "tiles exceed a block's shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_do,
+               const float* __restrict__ lse, const float* __restrict__ dvec,
+               float* __restrict__ dk_part, float* __restrict__ dv_part,
+               int Sq, int Skv, int H, int K, float scale, int causal,
+               int window, float softcap) {
+  using C = tc::Cfg<D>;
+  using L = KvCfg<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base + L::kKOff, sv = base + L::kVOff,
+                 sq = base + L::kQOff, sdo = base + L::kDoOff;
+  float* xbuf = reinterpret_cast<float*>(smem_raw + (base - raw) + L::kXOff);
+  const uint32_t bar_kv = base + L::kBarOff, bar_full = bar_kv + 8,
+                 bar_empty = bar_full + 8 * kStages,
+                 bar_xfull = bar_empty + 8 * kStages, bar_xempty = bar_xfull + 8;
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int G = H / K, kvh = h / G, g = h % G;
+  const int k0 = blockIdx.y * kRows, k1 = min(k0 + kRows, Skv);
+  // the query rows that may see any of these keys, in whole tiles
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window ? min(Sq, k1 - 1 + window) : Sq;
+  const int t_lo = q_lo / kRows;
+  const int t_hi = q_lo < q_hi ? (q_hi + kRows - 1) / kRows : t_lo;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      tc::mbar_init(bar_full + 8 * s, 1);
+      tc::mbar_init(bar_empty + 8 * s, tc::kConsumers * 128);
+    }
+    tc::mbar_init(bar_xfull, 128);
+    tc::mbar_init(bar_xempty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        tc::kProducerRegs));
+    if (threadIdx.x == 0 && t_lo < t_hi) {
+      tc::mbar_expect_tx(bar_kv, 2 * C::kTileBytes);
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tc::tma_load(sk + x * C::kBoxBytes, &tm_k, bar_kv, x * C::kBoxCols,
+                     kvh, k0, b);
+        tc::tma_load(sv + x * C::kBoxBytes, &tm_v, bar_kv, x * C::kBoxCols,
+                     kvh, k0, b);
+      }
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo, s = i % kStages;
+        const uint32_t full = bar_full + 8 * s;
+        tc::mbar_wait(bar_empty + 8 * s, ((i / kStages) & 1) ^ 1);
+        tc::mbar_expect_tx(full, 2 * C::kTileBytes);
+        for (int x = 0; x < C::kBoxes; ++x) {
+          const uint32_t off = s * C::kTileBytes + x * C::kBoxBytes;
+          tc::tma_load(sq + off, &tm_q, full, x * C::kBoxCols, h, t * kRows,
+                       b);
+          tc::tma_load(sdo + off, &tm_do, full, x * C::kBoxCols, h,
+                       t * kRows, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 1 owns dV of the block's 64 keys,
+    // warpgroup 2 dK, each a 64 x D float32 accumulator in registers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        tc::kConsumerRegs));
+    const bool owns_dv = wg == 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int key = k0 + 16 * warp + lane / 4;  // and key + 8
+    const int colq = 2 * (lane % 4);
+    // per query row: lse for P (warpgroup 1), D for dS (warpgroup 2)
+    const float* rowvec = (owns_dv ? lse : dvec) + ((size_t)b * H + h) * Sq;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    if (t_lo < t_hi) tc::mbar_wait(bar_kv, 0);
+
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int i = t - t_lo, s = i % kStages;
+      const int q0 = t * kRows;
+      const uint32_t q_tile = sq + s * C::kTileBytes;
+      const uint32_t do_tile = sdo + s * C::kTileBytes;
+      float rv[16];  // the row values of this thread's 16 query columns
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qp = q0 + 8 * j + colq + e;
+          rv[2 * j + e] = qp < Sq ? rowvec[qp] : 0.0f;
+        }
+      tc::mbar_wait(bar_full + 8 * s, (i / kStages) & 1);
+      // S^T = K.Q^T (warpgroup 1) or dP^T = V.dO^T (warpgroup 2)
+      float sc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = 0.0f;
+      tc::wg_fence();
+      if (owns_dv)
+        mma_ss<D>(sc, sk, q_tile);
+      else
+        mma_ss<D>(sc, sv, do_tile);
+      tc::wg_commit();
+      tc::wg_wait_all();
+      tc::hold<32>(sc);
+
+      if (owns_dv) {
+        // P^T; P^T (1 - tanh^2) / sqrt(D) to warpgroup 2
+        const bool cut = q0 + kRows > Sq || k0 + kRows > Skv ||
+                         (causal && q0 < k0 + kRows - 1) ||
+                         (window && q0 + kRows - 1 - k0 >= window);
+        tc::mbar_wait(bar_xempty, (i & 1) ^ 1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * j + e] * scale, dcap = 1.0f;
+            if (softcap != 0.0f) {
+              const float th = tanhf(x / softcap);
+              x = th * softcap;
+              dcap = 1.0f - th * th;
+            }
+            bool ok = true;
+            if (cut)
+              ok = visible(q0 + 8 * j + colq + (e & 1),
+                           key + (e >= 2 ? 8 : 0), Sq, Skv, causal, window);
+            const float p = ok ? expf(x - rv[2 * j + (e & 1)]) : 0.0f;
+            sc[4 * j + e] = p;
+            xbuf[(4 * j + e) * 128 + tid] = p * dcap * scale;
+          }
+        }
+        tc::mbar_arrive(bar_xfull);
+      } else {
+        // dS^T = P^T (dP^T - D) (1 - tanh^2) / sqrt(D)
+        tc::mbar_wait(bar_xfull, i & 1);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * j + e] = xbuf[(4 * j + e) * 128 + tid] *
+                            (sc[4 * j + e] - rv[2 * j + (e & 1)]);
+        tc::mbar_arrive(bar_xempty);
+      }
+      // dV += P^T.dO or dK += dS^T.Q, the A operand split in two parts
+      uint32_t hi[16], lo[16];
+      to_frags(sc, hi, lo);
+      tc::wg_fence();
+      mma_rs<D>(acc, hi, lo, owns_dv ? do_tile : q_tile);
+      tc::wg_commit();
+      tc::wg_wait_all();
+      tc::hold<D / 2>(acc);
+      tc::hold<16>(hi);
+      tc::hold<16>(lo);
+      tc::mbar_arrive(bar_empty + 8 * s);
+    }
+
+    // this head's share of dV or dK: (B, Skv, K, G, D) float32
+    float* part = owns_dv ? dv_part : dk_part;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int kp = key + 8 * half;
+      if (kp >= Skv) continue;
+      float* dst =
+          part + ((((size_t)b * Skv + kp) * K + kvh) * G + g) * D + colq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// out (rows, D) bf16 = the sum over g of part (rows, G, D), g in order.
+__global__ void __launch_bounds__(256)
+sum_splits_kernel(const float* __restrict__ part,
+                  __nv_bfloat16* __restrict__ out, long long pairs, int G,
+                  int D) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < pairs; i += stride) {
+    const long long row = i / (D / 2);
+    const int c = 2 * (int)(i % (D / 2));
+    const float* src = part + row * G * D + c;
+    float2 sum = *reinterpret_cast<const float2*>(src);
+    for (int g = 1; g < G; ++g) {
+      const float2 x = *reinterpret_cast<const float2*>(src + (size_t)g * D);
+      sum.x += x.x;
+      sum.y += x.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(out + row * D + c) =
+        __floats2bfloat162_rn(sum.x, sum.y);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const __grid_constant__ CUtensorMap tm_do,
+             const float* __restrict__ lse, const float* __restrict__ dvec,
+             __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int K,
+             float scale, int causal, int window, float softcap) {
+  using C = tc::Cfg<D>;
+  using L = QCfg<D>;
+  constexpr int kKS = L::kKStages, kVS = L::kVStages;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base + L::kQOff, sdo = base + L::kDoOff,
+                 sk = base + L::kKOff, sv = base + L::kVOff;
+  const uint32_t bar_q = base + L::kBarOff, k_full = bar_q + 8,
+                 k_empty = k_full + 8 * kKS, v_full = k_empty + 8 * kKS,
+                 v_empty = v_full + 8 * kVS;
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int q0 = blockIdx.y * (tc::kConsumers * kRows);
+  const int q1 = min(q0 + tc::kConsumers * kRows, Sq);
+  // the band of keys any row of this block may see, in whole tiles
+  const int kv_lo = window ? max(0, q0 - window + 1) : 0;
+  const int kv_hi = causal ? min(q1, Skv) : Skv;
+  const int t_lo = kv_lo / kRows;
+  const int t_hi = max(t_lo, (kv_hi + kRows - 1) / kRows);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    tc::mbar_init(bar_q, 1);
+    for (int s = 0; s < kKS; ++s) {
+      tc::mbar_init(k_full + 8 * s, 1);
+      tc::mbar_init(k_empty + 8 * s, tc::kConsumers * 128);
+    }
+    for (int s = 0; s < kVS; ++s) {
+      tc::mbar_init(v_full + 8 * s, 1);
+      tc::mbar_init(v_empty + 8 * s, tc::kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        tc::kProducerRegs));
+    if (threadIdx.x == 0) {
+      int q_rows = 0;  // consumers with rows inside Sq
+      for (int c = 0; c < tc::kConsumers; ++c) q_rows += q0 + c * kRows < Sq;
+      tc::mbar_expect_tx(bar_q, 2 * q_rows * C::kTileBytes);
+      for (int c = 0; c < q_rows; ++c)
+        for (int x = 0; x < C::kBoxes; ++x) {
+          const uint32_t off = c * C::kTileBytes + x * C::kBoxBytes;
+          tc::tma_load(sq + off, &tm_q, bar_q, x * C::kBoxCols, h,
+                       q0 + c * kRows, b);
+          tc::tma_load(sdo + off, &tm_do, bar_q, x * C::kBoxCols, h,
+                       q0 + c * kRows, b);
+        }
+      for (int t = t_lo; t < t_hi; ++t) {
+        const int i = t - t_lo, ks = i % kKS, vs = i % kVS;
+        tc::mbar_wait(k_empty + 8 * ks, ((i / kKS) & 1) ^ 1);
+        tc::mbar_expect_tx(k_full + 8 * ks, C::kTileBytes);
+        for (int x = 0; x < C::kBoxes; ++x)
+          tc::tma_load(sk + ks * C::kTileBytes + x * C::kBoxBytes, &tm_k,
+                       k_full + 8 * ks, x * C::kBoxCols, kvh, t * kRows, b);
+        tc::mbar_wait(v_empty + 8 * vs, ((i / kVS) & 1) ^ 1);
+        tc::mbar_expect_tx(v_full + 8 * vs, C::kTileBytes);
+        for (int x = 0; x < C::kBoxes; ++x)
+          tc::tma_load(sv + vs * C::kTileBytes + x * C::kBoxBytes, &tm_v,
+                       v_full + 8 * vs, x * C::kBoxCols, kvh, t * kRows, b);
+      }
+    }
+  } else {
+    // ---- consumer: 64 query rows, dQ in registers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        tc::kConsumerRegs));
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int r0 = q0 + cw * kRows;
+    const int row = r0 + 16 * warp + lane / 4;  // and row + 8
+    const int colq = 2 * (lane % 4);
+    // the tiles this consumer's rows may see
+    int c_lo = t_hi, c_hi = t_hi;
+    if (r0 < Sq) {
+      const int lo = window ? max(0, r0 - window + 1) : 0;
+      const int hi = causal ? min(min(r0 + kRows, Sq), Skv) : Skv;
+      c_lo = max(t_lo, lo / kRows);
+      c_hi = min(t_hi, (hi + kRows - 1) / kRows);
+    }
+    const size_t rows = ((size_t)b * H + h) * Sq;
+    const float lse0 = row < Sq ? lse[rows + row] : 0.0f;
+    const float lse1 = row + 8 < Sq ? lse[rows + row + 8] : 0.0f;
+    const float dv0 = row < Sq ? dvec[rows + row] : 0.0f;
+    const float dv1 = row + 8 < Sq ? dvec[rows + row + 8] : 0.0f;
+    const uint32_t q_tile = sq + cw * C::kTileBytes;
+    const uint32_t do_tile = sdo + cw * C::kTileBytes;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+    if (r0 < Sq) tc::mbar_wait(bar_q, 0);
+
+    for (int t = t_lo; t < t_hi; ++t) {
+      const int i = t - t_lo, ks = i % kKS, vs = i % kVS;
+      const uint32_t k_tile = sk + ks * C::kTileBytes;
+      const uint32_t v_tile = sv + vs * C::kTileBytes;
+      const bool own = t >= c_lo && t < c_hi;
+      tc::mbar_wait(k_full + 8 * ks, (i / kKS) & 1);
+      tc::mbar_wait(v_full + 8 * vs, (i / kVS) & 1);
+      float sc[32], dp[32];
+      if (own) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.0f;
+        tc::wg_fence();
+        mma_ss<D>(sc, q_tile, k_tile);   // S = Q.K^T
+        mma_ss<D>(dp, do_tile, v_tile);  // dP = dO.V^T
+        tc::wg_commit();
+        tc::wg_wait_all();
+        tc::hold<32>(sc);
+        tc::hold<32>(dp);
+      }
+      tc::mbar_arrive(v_empty + 8 * vs);
+      if (own) {
+        const int k0 = t * kRows;
+        const bool cut = k0 + kRows > Skv ||
+                         (causal && k0 + kRows - 1 > r0) ||
+                         (window && r0 + kRows - 1 - k0 >= window);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * j + e] * scale, dcap = 1.0f;
+            if (softcap != 0.0f) {
+              const float th = tanhf(x / softcap);
+              x = th * softcap;
+              dcap = 1.0f - th * th;
+            }
+            bool ok = true;
+            if (cut)
+              ok = visible(row + (e >= 2 ? 8 : 0), k0 + 8 * j + colq + (e & 1),
+                           Sq, Skv, causal, window);
+            const float p = ok ? expf(x - (e >= 2 ? lse1 : lse0)) : 0.0f;
+            dp[4 * j + e] =
+                p * (dp[4 * j + e] - (e >= 2 ? dv1 : dv0)) * dcap * scale;
+          }
+        }
+        // dQ += dS.K, dS split in two parts, K read MN-major
+        uint32_t hi[16], lo[16];
+        to_frags(dp, hi, lo);
+        tc::wg_fence();
+        mma_rs<D>(acc, hi, lo, k_tile);
+        tc::wg_commit();
+        tc::wg_wait_all();
+        tc::hold<D / 2>(acc);
+        tc::hold<16>(hi);
+        tc::hold<16>(lo);
+      }
+      tc::mbar_arrive(k_empty + 8 * ks);
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int qp = row + 8 * half;
+      if (qp >= Sq) continue;
+      __nv_bfloat16* dst = dq + (((size_t)b * Sq + qp) * H + h) * D + colq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                  acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, float* dvec, float* part,
+              void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H,
+              int K, int causal, int window, float softcap,
+              cudaStream_t stream) {
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!tc::make_map<D>(&mq, q, B, Sq, H) ||
+      !tc::make_map<D>(&mk, k, B, Skv, K) ||
+      !tc::make_map<D>(&mv, v, B, Skv, K) ||
+      !tc::make_map<D>(&mdo, dout, B, Sq, H))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)KvCfg<D>::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(dq_tc_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)QCfg<D>::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)B * Sq * H;
+  dot_kernel<__nv_bfloat16><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, dvec, rows, Sq, H,
+      D);
+  const float scale = 1.0f / sqrtf((float)D);
+  const size_t n_part = (size_t)B * Skv * H * D;
+  dkdv_tc_kernel<D><<<dim3(H, (Skv + kRows - 1) / kRows, B), tc::kThreads,
+                      KvCfg<D>::kBytes, stream>>>(
+      mq, mk, mv, mdo, lse, dvec, part, part + n_part, Sq, Skv, H, K, scale,
+      causal, window, softcap);
+  const long long pairs = (long long)B * Skv * K * D / 2;
+  const long long want = (pairs + 255) / 256;
+  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+  sum_splits_kernel<<<blocks, 256, 0, stream>>>(
+      part, (__nv_bfloat16*)dk, pairs, H / K, D);
+  sum_splits_kernel<<<blocks, 256, 0, stream>>>(
+      part + n_part, (__nv_bfloat16*)dv, pairs, H / K, D);
+  dq_tc_kernel<D><<<dim3(H, (Sq + tc::kConsumers * kRows - 1) /
+                                (tc::kConsumers * kRows), B),
+                    tc::kThreads, QCfg<D>::kBytes, stream>>>(
+      mq, mk, mv, mdo, lse, dvec, (__nv_bfloat16*)dq, Sq, Skv, H, K, scale,
+      causal, window, softcap);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- float32, CUDA cores
+constexpr int kB = 32;         // query rows or keys a tile
+constexpr int kThreads = 256;  // 16 row pairs x 16 column lanes
+
+template <int D>
+struct Smem {
+  static constexpr int kStride = D + 1;               // padded tile rows
+  static constexpr int kTile = kB * kStride;          // floats a D-wide tile
+  static constexpr int kScore = kB * (kB + 1);        // floats a score tile
+  // Q, dO, K, V tiles, P and dS, lse and D of the query rows
+  static constexpr size_t kBytes =
+      (4 * (size_t)kTile + 2 * kScore + 2 * kB) * sizeof(float);
+  static_assert(kBytes <= kMaxSmem, "tiles exceed a block's shared memory");
+};
+
+// Rows [row0, row0 + kB) of head `head` of x (B, S, nh, D) into a padded
+// tile; rows past S are zeros.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ x, int b,
+                                          int row0, int S, int nh, int head) {
+  for (int i = threadIdx.x; i < kB * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    const int s = row0 + r;
+    dst[r * Smem<D>::kStride + c] =
+        s < S ? x[(((size_t)b * S + s) * nh + head) * D + c] : 0.0f;
+  }
 }
 
 // For the query tile at q0 and the key tile at k0 (both in shared
@@ -1008,12 +1555,12 @@ __device__ __forceinline__ void grad_scores(
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dvec,
-            T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H,
+            float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H,
             int K, float scale, int causal, int window, float softcap) {
   using L = Smem<D>;
   constexpr int kCols = D / 16;
@@ -1036,8 +1583,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_hi = window ? min(Sq, k1 - 1 + window) : Sq;
   const int t_lo = q_lo / kB, t_hi = q_lo < q_hi ? (q_hi + kB - 1) / kB : 0;
 
-  load_rows<T, D>(ks, k, b, k0, Skv, K, kvh);
-  load_rows<T, D>(vs, v, b, k0, Skv, K, kvh);
+  load_rows<D>(ks, k, b, k0, Skv, K, kvh);
+  load_rows<D>(vs, v, b, k0, Skv, K, kvh);
   float dk_acc[2][kCols], dv_acc[2][kCols];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -1049,8 +1596,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = t_lo; t < t_hi; ++t) {
       const int q0 = t * kB;
       __syncthreads();  // the last tile's readers are done
-      load_rows<T, D>(qs, q, b, q0, Sq, H, h);
-      load_rows<T, D>(dos, dout, b, q0, Sq, H, h);
+      load_rows<D>(qs, q, b, q0, Sq, H, h);
+      load_rows<D>(dos, dout, b, q0, Sq, H, h);
       if (threadIdx.x < kB) {
         const int qp = q0 + threadIdx.x;
         const size_t idx = ((size_t)b * H + h) * Sq + qp;
@@ -1086,18 +1633,18 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t base = (((size_t)b * Skv + kp) * K + kvh) * D + c0;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      dk[base + 16 * c] = from_f<T>(dk_acc[i][c]);
-      dv[base + 16 * c] = from_f<T>(dv_acc[i][c]);
+      dk[base + 16 * c] = dk_acc[i][c];
+      dv[base + 16 * c] = dv_acc[i][c];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dvec,
-          T* __restrict__ dq, int Sq, int Skv, int H, int K, float scale,
+          float* __restrict__ dq, int Sq, int Skv, int H, int K, float scale,
           int causal, int window, float softcap) {
   using L = Smem<D>;
   constexpr int kCols = D / 16;
@@ -1120,8 +1667,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int t_lo = kv_lo / kB;
   const int t_hi = kv_lo < kv_hi ? (kv_hi + kB - 1) / kB : 0;
 
-  load_rows<T, D>(qs, q, b, q0, Sq, H, h);
-  load_rows<T, D>(dos, dout, b, q0, Sq, H, h);
+  load_rows<D>(qs, q, b, q0, Sq, H, h);
+  load_rows<D>(dos, dout, b, q0, Sq, H, h);
   if (threadIdx.x < kB) {
     const int qp = q0 + threadIdx.x;
     const size_t idx = ((size_t)b * H + h) * Sq + qp;
@@ -1137,8 +1684,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = t_lo; t < t_hi; ++t) {
     const int k0 = t * kB;
     __syncthreads();  // the last tile's readers are done
-    load_rows<T, D>(ks, k, b, k0, Skv, K, kvh);
-    load_rows<T, D>(vs, v, b, k0, Skv, K, kvh);
+    load_rows<D>(ks, k, b, k0, Skv, K, kvh);
+    load_rows<D>(vs, v, b, k0, Skv, K, kvh);
     __syncthreads();
     grad_scores<D>(nullptr, dss, qs, dos, ks, vs, lse_s, d_s, q0, k0, Sq,
                    Skv, scale, causal, window, softcap);
@@ -1161,11 +1708,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qp >= Sq) continue;
     const size_t base = (((size_t)b * Sq + qp) * H + h) * D + c0;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dq[base + 16 * c] = from_f<T>(acc[i][c]);
+    for (int c = 0; c < kCols; ++c) dq[base + 16 * c] = acc[i][c];
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dvec, void* dq,
            void* dk, void* dv, int B, int Sq, int Skv, int H, int K,
@@ -1173,47 +1720,66 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   constexpr size_t smem = Smem<D>::kBytes;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dq_kernel<T, D>,
+      err = cudaFuncSetAttribute(dq_kernel<D>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const long long rows = (long long)B * Sq * H;
-  dot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      (const T*)o, (const T*)dout, dvec, rows, Sq, H, D);
+  dot_kernel<float><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      (const float*)o, (const float*)dout, dvec, rows, Sq, H, D);
   const float scale = 1.0f / sqrtf((float)D);
-  dkdv_kernel<T, D><<<dim3((Skv + kB - 1) / kB, K, B), kThreads, smem,
+  dkdv_kernel<D><<<dim3((Skv + kB - 1) / kB, K, B), kThreads, smem,
                       stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dvec,
-      (T*)dk, (T*)dv, Sq, Skv, H, K, scale, causal, window, softcap);
-  dq_kernel<T, D><<<dim3((Sq + kB - 1) / kB, H, B), kThreads, smem,
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, dvec,
+      (float*)dk, (float*)dv, Sq, Skv, H, K, scale, causal, window, softcap);
+  dq_kernel<D><<<dim3((Sq + kB - 1) / kB, H, B), kThreads, smem,
                     stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dvec,
-      (T*)dq, Sq, Skv, H, K, scale, causal, window, softcap);
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, dvec,
+      (float*)dq, Sq, Skv, H, K, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const float* lse, float* dvec, void* dq,
-             void* dk, void* dv, int B, int Sq, int Skv, int H, int K, int D,
-             int causal, int window, float softcap, cudaStream_t stream) {
+// Both types: the tensor-core kernels for bfloat16, the CUDA-core ones
+// for float32.
+template <int D>
+int launch_any(int bf16, const void* q, const void* k, const void* v,
+               const void* o, const void* dout, const float* lse, float* dvec,
+               float* part, void* dq, void* dk, void* dv, int B, int Sq,
+               int Skv, int H, int K, int causal, int window, float softcap,
+               cudaStream_t stream) {
+  if (bf16)
+    return launch_tc<D>(q, k, v, o, dout, lse, dvec, part, dq, dk, dv, B, Sq,
+                        Skv, H, K, causal, window, softcap, stream);
+  return launch<D>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq, Skv, H, K,
+                   causal, window, softcap, stream);
+}
+
+int launch_d(int bf16, const void* q, const void* k, const void* v,
+             const void* o, const void* dout, const float* lse, float* dvec,
+             float* part, void* dq, void* dk, void* dv, int B, int Sq,
+             int Skv, int H, int K, int D, int causal, int window,
+             float softcap, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq,
-                           Skv, H, K, causal, window, softcap, stream);
+      return launch_any<16>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
+                            dv, B, Sq, Skv, H, K, causal, window, softcap,
+                            stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq,
-                           Skv, H, K, causal, window, softcap, stream);
+      return launch_any<64>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
+                            dv, B, Sq, Skv, H, K, causal, window, softcap,
+                            stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq,
-                            Skv, H, K, causal, window, softcap, stream);
+      return launch_any<128>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
+                             dv, B, Sq, Skv, H, K, causal, window, softcap,
+                             stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq,
-                            Skv, H, K, causal, window, softcap, stream);
+      return launch_any<256>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
+                             dv, B, Sq, Skv, H, K, causal, window, softcap,
+                             stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1252,25 +1818,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 
 // The gradient of flash_attention_launch's output: dq (B, Sq, H, D), dk
 // and dv (B, Skv, K, D) from q, k, v, the forward's o and lse, and dout,
-// the gradient of o; dvec: (B, H, Sq) float32 scratch (D = rowsum(dO * O)).
-// Types, shapes and options as flash_attention_launch's (dtype 0 float32,
-// 1 bfloat16); every kernel runs on the CUDA cores.  Launches three
-// kernels on `stream` and returns the cudaError_t of the launches.
+// the gradient of o; dvec: (B, H, Sq) float32 scratch (D = rowsum(dO * O));
+// part: for bfloat16, (2, B, Skv, H, D) float32 scratch (each query head's
+// share of dk, then of dv), null for float32.  Types, shapes and options as
+// flash_attention_launch's: dtype 1 (bfloat16) runs on the tensor cores
+// (four kernels: D, dk/dv partials, their sum over the heads of a KV head,
+// dq), dtype 0 (float32) on the CUDA cores (three: D, dk/dv, dq).
+// Launches on `stream` and returns the cudaError_t of the launches.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* dvec, void* dq, void* dk,
-    void* dv, int B, int Sq, int Skv, int H, int K, int D, int dtype,
-    int causal, int window, float softcap, void* stream) {
+    const void* dout, const float* lse, float* dvec, float* part, void* dq,
+    void* dk, void* dv, int B, int Sq, int Skv, int H, int K, int D,
+    int dtype, int causal, int window, float softcap, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return bwd::launch_d<float>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B,
-                                Sq, Skv, H, K, D, causal, window, softcap, s);
-  if (dtype == 1)
-    return bwd::launch_d<__nv_bfloat16>(q, k, v, o, dout, lse, dvec, dq, dk,
-                                        dv, B, Sq, Skv, H, K, D, causal,
-                                        window, softcap, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return bwd::launch_d(dtype, q, k, v, o, dout, lse, dvec, part, dq, dk, dv,
+                       B, Sq, Skv, H, K, D, causal, window, softcap,
+                       (cudaStream_t)stream);
 }

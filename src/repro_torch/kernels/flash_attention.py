@@ -11,12 +11,14 @@ recomputes the probabilities from.  ``flash_attention_bwd(q, k, v, o,
 lse, do, ...)`` is its gradient -> (dq, dk, dv) in the inputs' dtype.
 For tensors on the CPU each takes its plain version
 (``ref.flash_attention_ref``, ``ref.flash_attention_bwd_ref``); for CUDA
-tensors it launches its kernels or raises.  The forward's C entry point
-picks the kernel by dtype: bfloat16 runs on the tensor cores (``wgmma``
-fed by TMA), float32 on the CUDA cores; the backward runs on the CUDA
-cores for both.  Every forward launch adds one to
-``flash_attention_launches``, every backward launch (its three kernels)
-one to ``flash_attention_bwd_launches``.
+tensors it launches its kernels or raises.  Each C entry point picks its
+kernels by dtype: bfloat16 runs on the
+tensor cores (``wgmma`` fed by TMA; the backward's dK/dV kernel one block
+per (64 keys, query head, batch), each head's share summed over the heads
+of its KV head in a second pass through float32 scratch), float32 on the
+CUDA cores.  Every forward launch adds one to
+``flash_attention_launches``, every backward launch (its four kernels
+in bfloat16, three in float32) one to ``flash_attention_bwd_launches``.
 
 Neither wrapper records an autograd graph: the gradient is
 ``ops.flash_attention``'s ``autograd.Function``, and a wrapper reached
@@ -119,11 +121,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     if Sq == 0 or Skv == 0 or dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     dvec = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    # bf16: each query head's float32 share of dk, then of dv
+    part = (torch.empty((2, B, Skv, H, D), dtype=torch.float32, device=dev)
+            if dt == torch.bfloat16 else None)
     fn = _fn("flash_attention", "flash_attention_bwd_launch",
-             [P] * 10 + [I] * 9 + [ctypes.c_float, P])
+             [P] * 11 + [I] * 9 + [ctypes.c_float, P])
     with on_device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
+                 None if part is None else part.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, Sq, Skv, H, K, D, DTYPES[dt], int(bool(causal)),
                  int(window), float(softcap), current_stream(dev))

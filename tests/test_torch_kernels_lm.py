@@ -23,7 +23,12 @@ through the plain forwards; their vmap rules under
 ``torch.func.vmap(torch.func.grad(...))`` (one wrapper call for every
 trial) against a loop over trials; and the wrappers' refusal of inputs
 that require grad outside their Function.  The backward kernels, like
-the forward ones, run only on the card.
+the forward ones, run only on the card; what the bf16 ones compute in
+their own order (64 x 64 tiles of the band, P and dS split in two bf16
+parts, each query head's share of dK and dV summed over its group in
+order) is emulated in plain torch and held against the JAX float32 vjp
+within the card's limit, and with a single bf16 P and dS must not stay
+within it.
 
 Tolerances: float32 results 2e-5 absolute on O(1) outputs (both sides
 compute in float32, in other orders); bfloat16 results 2e-2 absolute —
@@ -347,6 +352,155 @@ def test_single_bf16_probabilities_exceed_the_bf16_limit(name):
     rms an element) does not stay within the same limit."""
     tx, opts, ref32 = _emulated_case(name)
     assert _excess(_tensor_core_flash(*tx, *opts, split=False), ref32) > 1.0
+
+
+# ---------------------------------- the bf16 backward kernels' arithmetic
+#: the forward's emulated cases, and one at D = 256 with G = H/K > 1
+EMULATED_BWD_CASES = {
+    **EMULATED_CASES,
+    "gqa_d256": (2, 160, 160, 4, 2, 256, True, 96, 0.0),
+}
+#: chip_smoke.py's BWD_FLOOR: the backward's absolute floor, a share of
+#: the largest gradient's rms
+BWD_FLOOR = 1e-4
+
+
+def _two_parts(x, split):
+    """x as the kernels feed it to a second product: bf16(x), plus
+    bf16(x - bf16(x)) when split."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float() if split else hi
+
+
+def _tile_grads(q, do, k, v, lse, dvec, q0, k0, opts, Sq, Skv):
+    """P and dS of one (query tile, key tile) pair of one or more heads:
+    S and dP float32 sums of the bf16 inputs' products, scale, softcap,
+    P = exp(s - lse) and 0 where masked, dS = P (dP - D) (1 - tanh^2) /
+    sqrt(D)."""
+    causal, window, softcap = opts
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    x = q @ k.transpose(-1, -2) * scale
+    dcap = 1.0
+    if softcap:
+        t = torch.tanh(x / softcap)
+        x, dcap = t * softcap, 1.0 - t * t
+    qp = torch.arange(q0, q0 + q.shape[-2])[:, None]
+    kp = torch.arange(k0, k0 + k.shape[-2])[None, :]
+    ok = (qp < Sq) & (kp < Skv)
+    if causal:
+        ok &= qp >= kp
+    if window:
+        ok &= (qp - kp) < window
+    p = torch.where(ok, torch.exp(x - lse[..., None]), torch.zeros(()))
+    ds = p * dcap * scale * (do @ v.transpose(-1, -2) - dvec[..., None])
+    return p, ds
+
+
+def _tensor_core_flash_bwd(q, k, v, o, lse, do, causal, window, softcap,
+                           split=True):
+    """Plain-torch emulation of the bf16 backward kernels' arithmetic
+    (``csrc/flash_attention.cu`` ``bwd::dkdv_tc_kernel``,
+    ``bwd::dq_tc_kernel``): D = rowsum(dO O) in float32; per 64-key tile
+    and query head, the 64-row query tiles of the keys' band in order,
+    dV += P^T.dO and dK += dS^T.Q with P and dS split in two bf16 parts
+    (``split=False``: the first alone), each head's float32 share then
+    summed over the heads of its KV head in order; per 64 query rows the
+    64-key tiles of their band, dQ += dS.K with dS split; each gradient
+    rounded once to bf16."""
+    B, Sq, H, D = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    opts = (causal, window, softcap)
+    qf, dof = (t.float().transpose(1, 2) for t in (q, do))  # (B, H, Sq, D)
+    kf, vf = (t.float().transpose(1, 2).repeat_interleave(G, 1)
+              for t in (k, v))
+    dvec = (do.float() * o.float()).sum(-1).transpose(1, 2)  # (B, H, Sq)
+    part_k = torch.zeros(B, H, Skv, D)
+    part_v = torch.zeros(B, H, Skv, D)
+    for k0 in range(0, Skv, 64):
+        k1 = min(k0 + 64, Skv)
+        lo = k0 if causal else 0
+        hi = min(Sq, k1 - 1 + window) if window else Sq
+        for q0 in range(lo // 64 * 64, hi if lo < hi else 0, 64):
+            q1 = min(q0 + 64, Sq)
+            p, ds = _tile_grads(qf[:, :, q0:q1], dof[:, :, q0:q1],
+                                kf[:, :, k0:k1], vf[:, :, k0:k1],
+                                lse[:, :, q0:q1], dvec[:, :, q0:q1], q0, k0,
+                                opts, Sq, Skv)
+            part_v[:, :, k0:k1] += (_two_parts(p, split).transpose(-1, -2)
+                                    @ dof[:, :, q0:q1])
+            part_k[:, :, k0:k1] += (_two_parts(ds, split).transpose(-1, -2)
+                                    @ qf[:, :, q0:q1])
+    dk = torch.zeros(B, K, Skv, D)
+    dv = torch.zeros(B, K, Skv, D)
+    for g in range(G):
+        dk = dk + part_k.reshape(B, K, G, Skv, D)[:, :, g]
+        dv = dv + part_v.reshape(B, K, G, Skv, D)[:, :, g]
+    dq = torch.zeros(B, H, Sq, D)
+    for r0 in range(0, Sq, 64):
+        r1 = min(r0 + 64, Sq)
+        lo = max(0, r0 - window + 1) if window else 0
+        hi = min(r1, Skv) if causal else Skv
+        for k0 in range(lo // 64 * 64, hi if lo < hi else 0, 64):
+            k1 = min(k0 + 64, Skv)
+            _, ds = _tile_grads(qf[:, :, r0:r1], dof[:, :, r0:r1],
+                                kf[:, :, k0:k1], vf[:, :, k0:k1],
+                                lse[:, :, r0:r1], dvec[:, :, r0:r1], r0, k0,
+                                opts, Sq, Skv)
+            dq[:, :, r0:r1] += _two_parts(ds, split) @ kf[:, :, k0:k1]
+    return tuple(t.transpose(1, 2).bfloat16() for t in (dq, dk, dv))
+
+
+def _bwd_excess(got, want):
+    """chip_smoke.py's ``bwd_excess``: the largest ratio, over (dq, dk,
+    dv), of |got - want| to the BF16_TOL element limit plus BWD_FLOOR
+    times the largest rms of the three."""
+    rtol, c = BF16_TOL
+    floor = BWD_FLOOR * max(float(w.square().mean().sqrt()) for w in want)
+    worst = 0.0
+    for g, w in zip(got, want):
+        rms = w.square().mean(-1, keepdim=True).sqrt()
+        lim = rtol * w.abs() + c * rms + floor
+        worst = max(worst, float(((g.float() - w).abs() / lim).max()))
+    return worst
+
+
+def _emulated_bwd_case(name):
+    """bf16 q, k, v, dO; the JAX float32 vjp on their values; the float32
+    o that vjp uses (the kernels read the forward's bf16 o, and the card's
+    plain version reads that same o: its rounding is the caller's, not
+    this arithmetic's) and the row lse."""
+    case = EMULATED_BWD_CASES[name]
+    causal, window, softcap = case[6:]
+    jx = [jnp.asarray(a, jnp.bfloat16).astype(jnp.float32)
+          for a in _bwd_inputs(case, seed=5)]
+    o, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=causal, window=window, softcap=softcap), *jx[:3])
+    want = [torch.from_numpy(np.array(w)) for w in vjp(jx[3])]
+    q, k, v, do = (torch.from_numpy(np.array(a)).bfloat16() for a in jx)
+    _, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, return_lse=True)
+    args = (q, k, v, torch.from_numpy(np.array(o)), lse, do)
+    return args, (causal, window, softcap), want
+
+
+@pytest.mark.parametrize("name", list(EMULATED_BWD_CASES))
+def test_tensor_core_backward_within_the_bf16_limit(name):
+    """The bf16 backward kernels' arithmetic (P and dS split, the heads'
+    shares summed in order) stays within the limit the card holds them to
+    (chip_smoke.py's FLASH_TOL["bfloat16"] plus BWD_FLOOR), against the
+    JAX float32 vjp on the same bf16 inputs."""
+    args, opts, want = _emulated_bwd_case(name)
+    assert _bwd_excess(_tensor_core_flash_bwd(*args, *opts), want) <= 1.0
+
+
+@pytest.mark.parametrize("name", list(EMULATED_BWD_CASES))
+def test_single_bf16_p_and_ds_exceed_the_bf16_limit(name):
+    """Why the kernels split P and dS: one bf16 rounding of them does not
+    stay within the same limit."""
+    args, opts, want = _emulated_bwd_case(name)
+    assert _bwd_excess(_tensor_core_flash_bwd(*args, *opts, split=False),
+                       want) > 1.0
 
 
 # ------------------------------------------- the chunked scan's arithmetic
