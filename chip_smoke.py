@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: the GP suggestion
 service, the paper's §4 HPO loop (in process, over HTTP from worker
 processes, and through a sharded fleet that loses a shard), the LM
-server, the error-feedback int8 all-reduce, and LM training (one model,
-and a population of trials in one program).
+server (recurrentgemma-2b, and the MoE family: granite-moe-3b-a800m and
+deepseek-v2-lite-16b), the error-feedback int8 all-reduce, and LM
+training (one model, and a population of trials in one program).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -106,6 +107,15 @@ script exits non-zero and prints no result):
    against the float32 oracle on the same inputs, and at the serve shape
    three faults planted into the plain version (a key or the oldest tile
    of the band missing, no window) must fail that limit.
+4b. ``flash_attention`` at the MoE family's prefill layouts, bf16, B 4,
+   S 3000, causal: granite-moe-3b-a800m's (H 24, K 8, D 64) and
+   deepseek-v2-lite-16b's MLA (H = K = 16, q/k 192 and v 128 zero-padded
+   to 256, scale 1/sqrt(192)), held element by element to the float32
+   oracle with phase 4's limit, the padded output columns zero, a planted
+   fault (MLA at the padded head's own scale, 1/16) failing the limit;
+   timed beside the plain version and SDPA on the unpadded layout under
+   the first backend that takes it (named in the line); the bound counts
+   the unpadded work.
 5. the LM server at full width — ``serve("recurrentgemma-2b", batch=4,
    prompt_len=3000, gen=64, reduced=False)`` with random weights from its
    seed: exactly 8 ``flash_attention`` and 18 ``rglru_scan`` launches in
@@ -123,6 +133,22 @@ script exits non-zero and prints no result):
    logits limit sees it is recorded.  Last, one more prefill and 8
    decode steps under torch.profiler: the device's busy time and idle
    share, and its kernels by device time.
+5b. the MoE family served at full width and depth — ``serve(arch,
+   batch=4, prompt_len=3000, gen=64, reduced=False)`` for
+   granite-moe-3b-a800m and deepseek-v2-lite-16b, random weights from the
+   seed: exactly one ``flash_attention`` launch an attention layer in the
+   prefill (32 and 27) and none in decode, finite logits, prefill ms,
+   decode tokens a second, peak memory and the share of (token, choice)
+   pairs dropped by capacity (spied at ``moe.slots``); then at full width
+   and reduced depth (granite-moe 2 layers; deepseek 3, its dense layer
+   and two MoE layers) the kernel path against the plain bf16 path and a
+   float32 model of the same weights, prefill and 4 decode steps fed the
+   kernel path's tokens: every attention and MoE layer of the prefill by
+   relative norm and the logits by max |.| at ``LAYER_FACTOR`` and
+   ``LOGITS_FACTOR`` times the plain bf16 path's distance, the share
+   of router choices that differ from the float32 model's, and planted
+   faults (a capacity of 1, every choice shifted one expert on, MLA at
+   the padded head's scale) failing the layer limit.
 6. the error-feedback int8 all-reduce — (a) ``int8_quantize`` against its
    plain version, bit for bit (codes and scales), at the gradient tree's
    largest leaf (the 256 000 x 2560 embedding), ragged and short inputs,
@@ -146,12 +172,13 @@ script exits non-zero and prints no result):
    with two KV heads and two batches (H 8, K 2, S 1000, window 512) and
    at the population's folded shape (B 3, S 1024), at S = 1, 65 and
    1000, grouped-query (H 4, K 2, D 64), windows 0 and 32, softcap 30
-   (q, k of std 4 so the cap bends), D 16 and 128 and non-causal, held
-   element by element to the plain float32 backward of the same inputs
-   (``FLASH_TOL`` and a floor, ``bwd_excess``), the kernel's lse within
-   1e-4 of the plain one, and planted faults (the oldest key of the
-   window dropped, the softcap dropped, dK/dV from one query head of a
-   group) failing that limit; ``rglru_scan_bwd`` at (1, 3000, 2560),
+   (q, k of std 4 so the cap bends), D 16 and 128 and non-causal, and
+   MLA's scale 1/sqrt(192) at H = K = 16, D 256, held element by element
+   to the plain float32 backward of the same inputs (``FLASH_TOL`` and a
+   floor, ``bwd_excess``), the kernel's lse within 1e-4 of the plain one,
+   and planted faults (the oldest key of the window dropped, the softcap
+   dropped, dK/dV from one query head of a group, the default scale in
+   MLA's place) failing that limit; ``rglru_scan_bwd`` at (1, 3000, 2560),
    S = 1, 65 and R = 999 within 1e-5 of the largest gradient, a plain
    backward with no carry between tiles failing it; each with its time
    by CUDA events, its bound, the plain version's time and, for
@@ -196,6 +223,11 @@ line, how many passed and the card: how often the refits co-batch.
 
 runs the remote topology and the fleet failover (the kernels build at
 their first call in the service) and prints their lines and the card.
+
+    python3 chip_smoke.py --moe            # phases 1, 4b and 5b alone
+
+builds the kernels, runs the MoE family's attention cases and serving
+and prints their lines and the card.
 
     python3 chip_smoke.py --train          # phases 1 and 8 alone
 
@@ -288,9 +320,14 @@ SASS_FUNCTION_OPS = {"flash_attention": {
     "dq_tc_kernel": ("HGMMA", "UTMALDG")}}
 
 RESULTS = {}
+#: the card's name and power limit (``card_line``), set by ``main``: every
+#: line ``emit`` prints and writes names it
+CARD = None
 
 
 def emit(phase: str, **fields) -> None:
+    if CARD is not None:
+        fields = dict(fields, card=CARD)
     RESULTS.setdefault(phase, []).append(fields)
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -1877,6 +1914,115 @@ def phase_lm_kernels():
     return summary
 
 
+# ------------------------------------------------------------ phase 4b
+#: (name, B, S, H, K, Dqk, Dv) of the MoE family's prefill attention, all
+#: causal and bf16: granite-moe-3b-a800m's GQA (24 query heads over 8 KV
+#: heads, 64 wide) and deepseek-v2-lite-16b's MLA (q/k 192 = 128 + 64
+#: rope, v 128, 16 heads), which models/attention._mla_forward zero-pads
+#: to the kernel's head dim 256 with the scale 1/sqrt(192) of its own width
+MOE_FLASH_CASES = (("granite_moe", 4, 3000, 24, 8, 64, 64),
+                   ("mla", 4, 3000, 16, 16, 192, 128))
+
+
+def sdpa_backends(q, k, v, scale):
+    """``F.scaled_dot_product_attention`` (causal, grouped heads where K <
+    H) on q (B,S,H,Dqk), k (B,S,K,Dqk), v (B,S,K,Dv) under the first
+    backend that takes the layout, of flash, cuDNN, memory-efficient and
+    math -> (backend name, a call, its output (B,S,H,Dv)), or (None, None,
+    None) when none does."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=scale, enable_gqa=gqa)
+        try:
+            out = call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend.name, call, out.transpose(1, 2)
+    return None, None, None
+
+
+def phase_moe_kernels():
+    """4b: ``flash_attention`` at the MoE family's two prefill layouts,
+    held element by element against the float32 oracle on the same
+    (padded) inputs, the padded columns zero, and for MLA a planted fault
+    (the padded head's own scale 1/16) failing the limit; timed beside the
+    plain version and SDPA on the unpadded layout.  The bound counts the
+    unpadded work: 2·(Dqk + Dv) operations a visible pair a head, the
+    unpadded q, k, v and o once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    for name, B, S, H, K, Dqk, Dv in MOE_FLASH_CASES:
+        gen.manual_seed(S + H + Dqk)
+        D = next(d for d in kfa.HEAD_DIMS if d >= max(Dqk, Dv))
+        scale = 1.0 / math.sqrt(Dqk)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((B, S, H, Dqk), (B, S, K, Dqk),
+                                          (B, S, K, Dv)))
+
+        def padded():
+            return (F.pad(q, (0, D - Dqk)), F.pad(k, (0, D - Dqk)),
+                    F.pad(v, (0, D - Dv)))
+        qp, kp, vp = padded()
+        kw = dict(causal=True, scale=scale)
+        out = kfa.flash_attention(qp, kp, vp, **kw)
+        torch.cuda.synchronize()
+        check(not bool(out[..., Dv:].any()),
+              f"flash_attention {name}: padded output columns not zero")
+        out = out[..., :Dv]
+        want = ref.flash_attention_ref(qp, kp, vp, **kw)[..., :Dv]
+        abs_err = float((out.float() - want.float()).abs().max())
+        ref32 = ref.flash_attention_ref(qp.float(), kp.float(), vp.float(),
+                                        **kw)[..., :Dv]
+        excess = flash_excess(out, ref32, "bfloat16")
+        check(math.isfinite(excess) and excess <= 1.0,
+              f"flash_attention {name}: {excess} x its element-wise limit")
+        planted = None
+        if D != Dqk:
+            # the padded head's default scale, 1/sqrt(D), in MLA's place
+            bad = ref.flash_attention_ref(qp, kp, vp, causal=True)
+            planted = flash_excess(bad[..., :Dv], ref32, "bfloat16")
+            check(planted > 1.0, f"planted fault (scale 1/sqrt({D})) "
+                  f"passes: {planted}")
+            del bad
+        del ref32
+        backend, sdpa, lib_out = sdpa_backends(q, k, v, scale)
+        lib_ms = lib_err = None
+        if backend is not None:
+            lib_err = rel_err(lib_out.float(), want.float())
+            check(lib_err <= SDPA_LIMIT["bfloat16"],
+                  f"sdpa {name} ({backend}) disagrees: {lib_err}")
+            lib_ms = time_ms(sdpa)
+        del lib_out, want
+        ms = time_ms(lambda: kfa.flash_attention(qp, kp, vp, **kw))
+        pad_ms = time_ms(padded) if D != Dqk or D != Dv else 0.0
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(qp, kp, vp, **kw))
+        pairs = visible_pairs(S, S, True, 0)
+        flops = 2 * B * H * pairs * (Dqk + Dv)
+        nbytes = 2 * B * S * (H * Dqk + K * Dqk + K * Dv + H * Dv)
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        emit("flash_case", case=name, B=B, Sq=S, Skv=S, H=H, K=K, D=D,
+             Dqk=Dqk, Dv=Dv, scale=scale, causal=True, window=0,
+             softcap=0.0, dtype="bfloat16", tol=FLASH_TOL["bfloat16"],
+             excess=excess, planted_excess={"default_scale": planted},
+             max_abs_err=abs_err, ms=ms, pad_ms=pad_ms, plain_ms=plain_ms,
+             sdpa_ms=lib_ms, sdpa_backend=backend, sdpa_rel_err=lib_err,
+             bound_ms=bound, bound_by=by, gflop=flops / 1e9,
+             mbytes=nbytes / 1e6)
+        del q, k, v, qp, kp, vp, out
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- phase 5
 SERVE = dict(arch="recurrentgemma-2b", batch=4, prompt_len=3000, gen=64,
              reduced=False)
@@ -2169,6 +2315,317 @@ def phase_serve():
          greedy_total=int(seqs.size), plain_forced_s=plain_s,
          first_tokens=seqs[:, :8].tolist())
     return launches
+
+
+# ------------------------------------------------------------ phase 5b
+MOE_SERVE = dict(batch=4, prompt_len=3000, gen=64)
+#: arch -> (its attention layers, each one ``flash_attention`` launch a
+#: prefill; the depth of the float32 hold: deepseek-v2-lite's dense layer
+#: and two MoE layers, granite-moe's first two layers; a float32 copy at
+#: full depth would be ~63 GB for deepseek)
+MOE_ARCHS = {"granite-moe-3b-a800m": (32, 2), "deepseek-v2-lite-16b": (27, 3)}
+#: decode steps of the hold, fed the kernel path's greedy tokens
+MOE_HOLD_STEPS = 4
+#: The hold keeps phase 5's LAYER_FACTOR and LOGITS_FACTOR.  bf16 routing
+#: flips a share of the router's choices (near top-k ties) against the
+#: float32 model, and a few between the kernel and plain bf16 paths; the
+#: H100's first run put the kernel path within 1.022x of the plain path's
+#: distance at every layer (0.06-0.9% of choices flipped between the two)
+#: and its logits within 1.44x, so the factors stand for the MoE family.
+
+
+def moe_hold(arch: str, depth: int) -> dict:
+    """5b's hold at full width and depth ``depth``: the kernel path, the
+    plain bf16 path and the plain float32 model on the same weights (drawn
+    in float32, cast once) and prompts; the prefill's attention and MoE
+    layers by relative norm and the logits by max |.| (phase 5's limits),
+    the share of (token, choice) pairs whose expert differs from the
+    float32 model's, and planted faults that must fail the layer limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.steps import cast_params
+    from repro_torch.models import attention as MA
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MM
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = MOE_SERVE["batch"], MOE_SERVE["prompt_len"]
+    p32 = M.LM(cfg).init(seed=1, device=dev, dtype=torch.float32)
+    p16 = cast_params(p32, torch.bfloat16)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)), device=dev)
+    fed = []
+
+    def run(c, params, ref32=None, steps=MOE_HOLD_STEPS):
+        """Prefill and ``steps`` decode steps -> (logits, the prefill's
+        attention and MoE outputs, float32, or each one's relative
+        distance from ``ref32``'s, its router choices (B,S,k) a layer)."""
+        layers, choices = [], []
+        attn, moe, router = MA.attn_forward, MM.moe_forward, MM._router
+
+        def keep(y):
+            if ref32 is None:
+                layers.append(y.float())
+            else:
+                r = ref32[len(layers)]
+                layers.append(float(torch.linalg.vector_norm(y.float() - r)
+                                    / torch.linalg.vector_norm(r)))
+
+        def spy_attn(*a, **kw):
+            out = attn(*a, **kw)
+            keep(out[0] if isinstance(out, tuple) else out)
+            return out
+
+        def spy_moe(p, x, c_):
+            y, aux = moe(p, x, c_)
+            if x.shape[1] > 1:
+                keep(y)
+            return y, aux
+
+        def spy_router(p, x, c_):
+            w, idx, aux = router(p, x, c_)
+            if x.shape[1] > 1:
+                choices.append(idx)
+            return w, idx, aux
+
+        model = M.LM(c)
+        with patched(MA, attn_forward=spy_attn), \
+                patched(MM, moe_forward=spy_moe, _router=spy_router), \
+                torch.inference_mode():
+            cache, lg = model.prefill(params, {"tokens": tokens},
+                                      S + MOE_HOLD_STEPS)
+            logits = [lg.float()]
+            for i in range(steps):
+                if len(fed) <= i:
+                    fed.append(torch.argmax(lg, dim=-1))
+                lg, cache = model.decode_step(params, cache, fed[i])
+                logits.append(lg.float())
+        return logits, layers, choices
+
+    def flipped(a, b):
+        """Share of (token, choice) pairs of ``a`` whose expert is not
+        among ``b``'s choices for that token."""
+        E = cfg.n_experts
+        na = F.one_hot(a, E).sum(-2)
+        nb = F.one_hot(b, E).sum(-2)
+        return float((na - nb).clamp(min=0).sum()) / a.numel()
+
+    counters = lm_counters()
+    counters["flash_attention"].reset()
+    kernel, kernel_layers, kernel_idx = run(cfg, p16)
+    launches = counters["flash_attention"].count
+    check(launches == depth, f"{arch} hold: {launches} flash_attention "
+          f"launches in a depth-{depth} prefill")
+    with patched(ops, flash_attention=ref.flash_attention_ref):
+        f32, layers32, idx32 = run(cfg32, p32)
+        plain, plain_rel, plain_idx = run(cfg, p16, layers32)
+    check(counters["flash_attention"].count == launches,
+          "the plain runs launched the kernel")
+    kernel_rel = [float(torch.linalg.vector_norm(y - r)
+                        / torch.linalg.vector_norm(r))
+                  for y, r in zip(kernel_layers, layers32)]
+    del kernel_layers
+    bf16_err = [float((p - c).abs().max()) for p, c in zip(plain, f32)]
+    k_err32 = [float((k - c).abs().max()) for k, c in zip(kernel, f32)]
+    # every layer's attention, then its MoE FFN (a dense MLP is not spied)
+    kinds = [kind for i in range(depth) for kind in
+             (("attn",) if i < cfg.first_dense_layers else ("attn", "moe"))]
+    check(len(kernel_rel) == len(plain_rel) == len(kinds),
+          f"{arch} hold: spied {len(kernel_rel)} layers, not {len(kinds)}")
+
+    def layers_ok(rel):
+        return all(k <= LAYER_FACTOR * p for k, p in zip(rel, plain_rel))
+
+    def logits_ok(logits):
+        return all(float((a - c).abs().max()) <= LOGITS_FACTOR * be
+                   for a, c, be in zip(logits, f32, bf16_err))
+
+    for i, (ke, pe) in enumerate(zip(kernel_rel, plain_rel)):
+        check(ke <= LAYER_FACTOR * pe, f"{arch} hold layer {i} "
+              f"({kinds[i]}): |kernel - f32| {ke} > {LAYER_FACTOR} x "
+              f"|plain - f32| {pe}")
+    for i, (ke, be) in enumerate(zip(k_err32, bf16_err)):
+        check(ke <= LOGITS_FACTOR * be, f"{arch} hold logits "
+              f"{'prefill' if i == 0 else f'step {i}'}: |kernel - f32| {ke}"
+              f" > {LOGITS_FACTOR} x |plain - f32| {be}")
+    flips_kernel = [flipped(a, b) for a, b in zip(kernel_idx, idx32)]
+    flips_plain = [flipped(a, b) for a, b in zip(plain_idx, idx32)]
+    flips_paths = [flipped(a, b) for a, b in zip(kernel_idx, plain_idx)]
+
+    fa = ops.flash_attention
+    E = cfg.n_experts
+    router = MM._router
+
+    def shifted(p, x, c_):
+        w, idx, aux = router(p, x, c_)
+        return w, (idx + 1) % E, aux
+
+    faults = {"capacity_1": (MM, dict(capacity=lambda c_, seq: 1)),
+              "experts_shifted_by_one": (MM, dict(_router=shifted))}
+    if cfg.mla:
+        faults["mla_default_scale"] = (ops, dict(
+            flash_attention=lambda q, k, v, **kw: fa(
+                q, k, v, **dict(kw, scale=None))))
+    planted = {}
+    for fault, (mod, swap) in faults.items():
+        with patched(mod, **swap):
+            logits, rel, _ = run(cfg, p16, layers32, steps=0)
+        first = next((i for i, (fe, pe) in enumerate(zip(rel, plain_rel))
+                      if fe > LAYER_FACTOR * pe), None)
+        planted[fault] = dict(
+            layers_reject=not layers_ok(rel), first_layer_rejected=first,
+            worst_layer_ratio=max(fe / max(pe, 1e-30)
+                                  for fe, pe in zip(rel, plain_rel)),
+            logits_reject=not logits_ok(logits))
+        check(planted[fault]["layers_reject"],
+              f"{arch}: planted fault {fault} passes the layer limit: "
+              f"{planted[fault]}")
+    out = dict(depth=depth, layers=kinds, steps=MOE_HOLD_STEPS,
+               layer_rel_err_kernel_vs_f32=kernel_rel,
+               layer_rel_err_plain_vs_f32=plain_rel,
+               logits_abs_err_kernel_vs_f32=k_err32,
+               logits_abs_err_plain_vs_f32=bf16_err,
+               flipped_share_kernel_vs_f32=flips_kernel,
+               flipped_share_plain_vs_f32=flips_plain,
+               flipped_share_kernel_vs_plain=flips_paths,
+               planted_faults=planted, hold_launches=launches)
+    del p32, p16, kernel, plain, f32, layers32
+    free_card(f"moe_hold {arch}")
+    return out
+
+
+def phase_moe_serve():
+    """5b: ``serve`` of the MoE family at full width and full depth, each
+    config spied on at ``LM.prefill`` and ``LM.decode_step`` (launches,
+    logits, the weights and prompts) and at ``moe.slots`` (pairs dropped
+    by capacity); once both have served, one more prefill and
+    ``PROFILED_STEPS`` decode steps of each under torch.profiler (after
+    both serve runs: a trace can slow later host-bound decode), then
+    ``moe_hold`` at reduced depth.  -> the LM kernels' launches summed
+    over both serve runs (counters zeroed just before each)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MM
+    counters = lm_counters()
+    counts = lambda: {n: c.count for n, c in counters.items()}  # noqa: E731
+    total = {n: 0 for n in counters}
+    B, S, gen = (MOE_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    served = {}
+    for arch, (n_attn, _) in MOE_ARCHS.items():
+        resident_gb = free_card(f"moe_serve {arch}")
+        cfg = get_config(arch)
+        seen = {"steps": [], "drops": []}
+        prefill, decode_step, slots = M.LM.prefill, M.LM.decode_step, MM.slots
+
+        def spy_prefill(self, params, batch, cache_len):
+            seen["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            cache, logits = prefill(self, params, batch, cache_len)
+            seen.update(logits=logits.float().clone(), params=params,
+                        tokens=batch["tokens"], cache_len=cache_len,
+                        prefill_launches=counts())
+            return cache, logits
+
+        def spy_decode(self, params, cache, tokens):
+            logits, cache = decode_step(self, params, cache, tokens)
+            seen["steps"].append(
+                (tokens.clone(), torch.isfinite(logits).all()))
+            return logits, cache
+
+        def spy_slots(idx, n_experts, cap):
+            dest = slots(idx, n_experts, cap)
+            seen["drops"].append(((dest == n_experts * cap).sum(),
+                                  dest.numel()))
+            return dest
+
+        lines = []
+        with patched(M.LM, prefill=spy_prefill, decode_step=spy_decode), \
+                patched(MM, slots=spy_slots):
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.reset()
+            t0 = time.perf_counter()
+            seqs = srv.serve(arch, B, S, gen, reduced=False, seed=0,
+                             log=lines.append)
+            wall = time.perf_counter() - t0
+            launches = counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        m = re.search(r"in ([\d.]+)ms; decoded (\d+) steps in ([\d.]+)ms "
+                      r"\(([\d.]+) tok/s\)", lines[-1])
+        check(m is not None, f"serve's log line: {lines}")
+        want = {n: 0 for n in counters}
+        want["flash_attention"] = n_attn
+        check(seen["prefill_launches"] == want,
+              f"{arch} prefill launches {seen['prefill_launches']}")
+        check(launches == want, f"{arch}: decode launched kernels: "
+              f"{launches} after the prefill's {seen['prefill_launches']}")
+        check(seqs.shape == (B, gen), f"{arch} served {seqs.shape}")
+        check(len(seen["steps"]) == gen - 1, f"{arch}: decode steps missing")
+        check(bool(torch.isfinite(seen["logits"]).all())
+              and all(bool(f) for _, f in seen["steps"]),
+              f"{arch}: non-finite logits")
+        moe_layers = cfg.n_layers - cfg.first_dense_layers
+        dropped = sum(int(d) for d, _ in seen["drops"])
+        pairs = sum(n for _, n in seen["drops"])
+        check(len(seen["drops"]) == moe_layers
+              and pairs == moe_layers * B * S * cfg.top_k,
+              f"{arch}: {len(seen['drops'])} dispatches of {pairs} pairs")
+        for n in total:
+            total[n] += launches[n]
+        params = seen["params"]
+        served[arch] = dict(
+            params=params, tokens=seen["tokens"],
+            cache_len=seen["cache_len"],
+            fed=[t for t, _ in seen["steps"][:PROFILED_STEPS]],
+            line=dict(
+                arch=arch, batch=B, prompt_len=S, gen=gen, reduced=False,
+                wall_s=wall, prefill_ms=float(m.group(1)),
+                decode_ms=float(m.group(3)),
+                decode_tok_s=float(m.group(4)),
+                decode_steps=int(m.group(2)),
+                resident_before_gb=resident_gb, peak_memory_gb=peak_gb,
+                init_peak_memory_gb=seen["init_peak_gb"],
+                params=sum(t.numel() for t in M.tensors(params)),
+                param_gb=sum(t.numel() * t.element_size()
+                             for t in M.tensors(params)) / 1e9,
+                prefill_launches=seen["prefill_launches"],
+                launches=launches, capacity=MM.capacity(cfg, S),
+                dropped_pairs=dropped, pairs=pairs,
+                dropped_share=dropped / pairs,
+                first_tokens=seqs[:, :8].tolist()))
+        del seen, params
+    for arch, run in served.items():
+        model = M.LM(get_config(arch))
+        kept = {}
+
+        def profiled_prefill():
+            with torch.inference_mode():
+                kept["c"], _ = model.prefill(run["params"],
+                                             {"tokens": run["tokens"]},
+                                             run["cache_len"])
+
+        def profiled_decode():
+            with torch.inference_mode():
+                cache = kept["c"]
+                for tok in run["fed"]:
+                    _, cache = model.decode_step(run["params"], cache, tok)
+
+        emit("moe_serve", **run["line"])
+        for part, fn in (("prefill", profiled_prefill),
+                         (f"decode_{PROFILED_STEPS}_steps", profiled_decode)):
+            emit("moe_serve_profile", arch=arch, part=part,
+                 **device_profile(fn))
+        del model, kept
+        run.clear()
+        free_card(f"moe_serve {arch} profiled")
+    for arch, (_, depth) in MOE_ARCHS.items():
+        emit("moe_hold", arch=arch, **moe_hold(arch, depth))
+    return total
 
 
 # ------------------------------------------------------------- phase 6
@@ -2528,7 +2985,11 @@ BWD_CASES = (
     ("d16", 2, 1000, 4, 2, 16, True, 0, 0.0, "bfloat16"),
     ("d128_window_f32", 1, 1000, 8, 2, 128, True, 256, 0.0, "float32"),
     ("noncausal_d16_f32", 2, 300, 4, 4, 16, False, 0, 0.0, "float32"),
+    ("mla_scaled", 1, 1000, 16, 16, 256, True, 0, 0.0, "bfloat16"),
 )
+#: cases of BWD_CASES run with a scale of their own: MLA's 1/sqrt(192) on
+#: heads padded to 256 (the kernel's default would be 1/16)
+BWD_SCALE = {"mla_scaled": 1.0 / math.sqrt(192)}
 #: std of q and k under a softcap: scores of std 16 reach where the cap
 #: bends (tanh(16/30) = 0.49, its derivative 0.76), so dropping the
 #: derivative is a fault the limit can see; unit inputs leave the cap
@@ -2665,6 +3126,8 @@ def phase_train_kernels():
         v = torch.randn((B, S, K, D), generator=gen, device=dev).to(dt)
         do = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
         kw = dict(causal=causal, window=window, softcap=cap)
+        if name in BWD_SCALE:
+            kw["scale"] = BWD_SCALE[name]
         o, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
         _, lse_plain = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
         lse_err = float((lse - lse_plain).abs().max())
@@ -2689,6 +3152,10 @@ def phase_train_kernels():
             faults["softcap_dropped"] = lambda: ref.flash_attention_bwd_ref(
                 *f32((q, k, v, o)), lse, do.float(), causal=causal,
                 window=window, softcap=0.0)
+        if name in BWD_SCALE:
+            faults["default_scale"] = lambda: ref.flash_attention_bwd_ref(
+                *f32((q, k, v, o)), lse, do.float(), causal=causal,
+                window=window, softcap=cap)
         if name == "gqa_window32":
             G = H // K
             def one_head():
@@ -2708,8 +3175,8 @@ def phase_train_kernels():
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
             out = F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, scale=1.0 / math.sqrt(D),
-                enable_gqa=True)
+                qt, kt, vt, attn_mask=mask,
+                scale=kw.get("scale", 1.0 / math.sqrt(D)), enable_gqa=True)
             dot = do.transpose(1, 2)
             lib = lambda: torch.autograd.grad(  # noqa: E731
                 out, (qt, kt, vt), dot, retain_graph=True)
@@ -2730,6 +3197,7 @@ def phase_train_kernels():
                              "bfloat16" else PEAK_F32_FLOPS)
         emit("flash_bwd_case", case=name, B=B, S=S, H=H, K=K, D=D,
              causal=causal, window=window, softcap=cap, dtype=dtype,
+             scale=kw.get("scale", 1.0 / math.sqrt(D)),
              tol=FLASH_TOL[dtype], excess=excess, planted_excess=planted,
              lse_abs_err=lse_err, max_abs_err=abs_err, ms=ms,
              plain_ms=plain_ms, sdpa_ms=lib_ms, sdpa_rel_err=lib_err,
@@ -2986,9 +3454,11 @@ def phase_population():
 
 
 def main() -> int:
+    global CARD
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    CARD = card_line()
     if sys.argv[1:] == ["--device-times"]:
         phase_device_times()
         print(card_line())
@@ -3007,6 +3477,12 @@ def main() -> int:
     if sys.argv[1:] == ["--remote"]:
         phase_remote()
         phase_fleet()
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--moe"]:
+        phase_card()
+        phase_moe_kernels()
+        phase_moe_serve()
         print(card_line())
         return 0
     if sys.argv[1:] == ["--train"]:
@@ -3043,8 +3519,11 @@ def main() -> int:
     fleet = phase_fleet()
     free_card("after phase 3d")
     summary.update(phase_lm_kernels())
+    phase_moe_kernels()
     launches.update(phase_serve())
     free_card("after phase 5")
+    moe = phase_moe_serve()
+    free_card("after phase 5b")
     summary.update(phase_quant_kernels())
     launches.update(phase_compress())
     free_card("after phase 6b")
@@ -3092,6 +3571,7 @@ def main() -> int:
         k["fleet_launches"] = fleet.get(k["name"], 0)
         k["train_launches"] = train.get(k["name"], 0)
         k["population_launches"] = population.get(k["name"], 0)
+        k["moe_serve_launches"] = moe.get(k["name"], 0)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

@@ -1,8 +1,8 @@
 """Architecture registry of the port: the architectures it runs.
 
-The reference's registry has ten; the port lists the four of the dense
-and hybrid families, whose layers it has ported.  Asking for any other
-name raises, naming the ROADMAP item that ports it.
+The reference's registry has ten; the port lists the six of the dense,
+hybrid and MoE families, whose layers it has ported.  Asking for any
+other name raises, naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ _MODULES = {
     "granite-3-8b": "granite_3_8b",
     "phi3-medium-14b": "phi3_medium_14b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
 }
 
 
@@ -26,8 +28,8 @@ def get_config(name: str) -> ModelConfig:
     if name not in _MODULES:
         raise NotImplementedError(
             f"arch {name!r} is not in the port, which runs {list(_MODULES)}; "
-            "the other architectures of the JAX package (MoE, MLA, "
-            "parallel-block, encoder-decoder, VLM, xLSTM) are queued in "
+            "the other architectures of the JAX package (parallel-block, "
+            "encoder-decoder, VLM, xLSTM) are queued in "
             "ROADMAP.md §1")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG

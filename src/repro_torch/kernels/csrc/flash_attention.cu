@@ -9,11 +9,11 @@
 // VMEM scratch, masked tiles skipped with pl.when).
 //
 // Semantics copied from _flash_kernel: scores in float32 whatever the
-// input type; scale 1/sqrt(D) before the softcap, the softcap before the
-// mask; masked scores take -2^30, not -inf; rows past Sq and keys past Skv
-// are masked; query and key positions both count from 0 (also when
-// Sq != Skv); l is clamped at 1e-30 before the division; out in the input
-// type.
+// input type; the scale (the caller's, _flash_kernel's 1/sqrt(D)) before
+// the softcap, the softcap before the mask; masked scores take -2^30, not
+// -inf; rows past Sq and keys past Skv are masked; query and key positions
+// both count from 0 (also when Sq != Skv); l is clamped at 1e-30 before
+// the division; out in the input type.
 //
 // What bounds it on this card: operations.  The work is 4*D multiply-adds
 // a visible (query, key) pair a head (Q.K and P.V), 166 GFLOP at the serve
@@ -257,7 +257,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Skv, int H, int K, int causal, int window,
-           float softcap, cudaStream_t stream) {
+           float softcap, float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::kBytes;
   static_assert(smem <= kMaxSmem, "tiles exceed a block's shared memory");
   if (smem > 48 * 1024) {
@@ -269,7 +269,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
   flash_kernel<D><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
-      Skv, H, K, 1.0f / sqrtf((float)D), causal, window, softcap);
+      Skv, H, K, scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -807,7 +807,7 @@ bool make_map(CUtensorMap* map, const void* x, int B, int S, int nh) {
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Skv, int H, int K, int causal, int window,
-           float softcap, cudaStream_t stream) {
+           float softcap, float scale, cudaStream_t stream) {
   constexpr size_t smem = Cfg<D>::kBytes;
   CUtensorMap mq, mk, mv;
   if (!make_map<D>(&mq, q, B, Sq, H) || !make_map<D>(&mk, k, B, Skv, K) ||
@@ -820,7 +820,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   dim3 grid(H, (Sq + kConsumers * kRows - 1) / (kConsumers * kRows), B);
   flash_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, (__nv_bfloat16*)o, lse, Sq, Skv, H, K,
-      1.0f / sqrtf((float)D), causal, window, softcap);
+      scale, causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -829,32 +829,32 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 template <bool kBf16, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Skv, int H, int K, int causal, int window,
-           float softcap, cudaStream_t stream) {
+           float softcap, float scale, cudaStream_t stream) {
   if constexpr (kBf16)
     return tc::launch<D>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, window,
-                         softcap, stream);
+                         softcap, scale, stream);
   else
     return f32::launch<D>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, window,
-                          softcap, stream);
+                          softcap, scale, stream);
 }
 
 template <bool kBf16>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
              int B, int Sq, int Skv, int H, int K, int D, int causal,
-             int window, float softcap, cudaStream_t stream) {
+             int window, float softcap, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
       return launch<kBf16, 16>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
-                               window, softcap, stream);
+                               window, softcap, scale, stream);
     case 64:
       return launch<kBf16, 64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
-                               window, softcap, stream);
+                               window, softcap, scale, stream);
     case 128:
       return launch<kBf16, 128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
-                                window, softcap, stream);
+                                window, softcap, scale, stream);
     case 256:
       return launch<kBf16, 256>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
-                                window, softcap, stream);
+                                window, softcap, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -863,7 +863,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
 // ----------------------------------------------------------- backward
 // The gradient of the forward above, written for this port: the Pallas
 // kernel has no backward (the JAX package trains through XLA attention).
-// dS = P (dP - D) (1 - tanh^2 under a softcap) / sqrt(D), P = exp(s - lse)
+// dS = P (dP - D) (1 - tanh^2 under a softcap) scale, P = exp(s - lse)
 // from the forward's row log-sum-exp, masked pairs P = 0; dV = P^T.dO,
 // dK = dS^T.Q, dQ = dS.K; dK and dV summed over the H/K query heads of
 // each KV head.  Three steps, the kernels chosen by the input type (never
@@ -1435,7 +1435,7 @@ template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const float* lse, float* dvec, float* part,
               void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H,
-              int K, int causal, int window, float softcap,
+              int K, int causal, int window, float softcap, float scale,
               cudaStream_t stream) {
   if (part == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
@@ -1456,7 +1456,6 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   dot_kernel<__nv_bfloat16><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout, dvec, rows, Sq, H,
       D);
-  const float scale = 1.0f / sqrtf((float)D);
   const size_t n_part = (size_t)B * Skv * H * D;
   dkdv_tc_kernel<D><<<dim3(H, (Skv + kRows - 1) / kRows, B), tc::kThreads,
                       KvCfg<D>::kBytes, stream>>>(
@@ -1716,7 +1715,8 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dvec, void* dq,
            void* dk, void* dv, int B, int Sq, int Skv, int H, int K,
-           int causal, int window, float softcap, cudaStream_t stream) {
+           int causal, int window, float softcap, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = Smem<D>::kBytes;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -1731,7 +1731,6 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const long long rows = (long long)B * Sq * H;
   dot_kernel<float><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       (const float*)o, (const float*)dout, dvec, rows, Sq, H, D);
-  const float scale = 1.0f / sqrtf((float)D);
   dkdv_kernel<D><<<dim3((Skv + kB - 1) / kB, K, B), kThreads, smem,
                       stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, dvec,
@@ -1750,36 +1749,36 @@ int launch_any(int bf16, const void* q, const void* k, const void* v,
                const void* o, const void* dout, const float* lse, float* dvec,
                float* part, void* dq, void* dk, void* dv, int B, int Sq,
                int Skv, int H, int K, int causal, int window, float softcap,
-               cudaStream_t stream) {
+               float scale, cudaStream_t stream) {
   if (bf16)
     return launch_tc<D>(q, k, v, o, dout, lse, dvec, part, dq, dk, dv, B, Sq,
-                        Skv, H, K, causal, window, softcap, stream);
+                        Skv, H, K, causal, window, softcap, scale, stream);
   return launch<D>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq, Skv, H, K,
-                   causal, window, softcap, stream);
+                   causal, window, softcap, scale, stream);
 }
 
 int launch_d(int bf16, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* dvec,
              float* part, void* dq, void* dk, void* dv, int B, int Sq,
              int Skv, int H, int K, int D, int causal, int window,
-             float softcap, cudaStream_t stream) {
+             float softcap, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
       return launch_any<16>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
                             dv, B, Sq, Skv, H, K, causal, window, softcap,
-                            stream);
+                            scale, stream);
     case 64:
       return launch_any<64>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
                             dv, B, Sq, Skv, H, K, causal, window, softcap,
-                            stream);
+                            scale, stream);
     case 128:
       return launch_any<128>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
                              dv, B, Sq, Skv, H, K, causal, window, softcap,
-                             stream);
+                             scale, stream);
     case 256:
       return launch_any<256>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
                              dv, B, Sq, Skv, H, K, causal, window, softcap,
-                             stream);
+                             scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1792,15 +1791,17 @@ int launch_d(int bf16, const void* q, const void* k, const void* v,
 // q, o: (B, Sq, H, D); k, v: (B, Skv, K, D); contiguous, on one device, all
 // float32 (dtype 0, the CUDA-core kernel) or all bfloat16 (dtype 1, the
 // tensor-core kernel); K divides H; D one of 16, 64, 128, 256; window 0
-// means none, softcap 0 means none.  lse, when not null: (B, H, Sq) float32,
-// the row log-sum-exp m + log(max(l, 1e-30)) of the scores the softmax
-// normalised.  Launches on `stream` and returns the cudaError_t of the
-// launch.
+// means none, softcap 0 means none; scale multiplies every score before
+// the softcap (1/sqrt(D) for plain attention; a caller whose head is
+// zero-padded to D passes that of its own width).  lse, when not null:
+// (B, H, Sq) float32, the row log-sum-exp m + log(max(l, 1e-30)) of the
+// scores the softmax normalised.  Launches on `stream` and returns the
+// cudaError_t of the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int Sq, int Skv, int H, int K,
                                       int D, int dtype, int causal,
-                                      int window, float softcap,
+                                      int window, float softcap, float scale,
                                       void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -1809,10 +1810,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_d<false>(q, k, v, o, lse, B, Sq, Skv, H, K, D, causal,
-                           window, softcap, s);
+                           window, softcap, scale, s);
   if (dtype == 1)
     return launch_d<true>(q, k, v, o, lse, B, Sq, Skv, H, K, D, causal,
-                          window, softcap, s);
+                          window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1829,12 +1830,13 @@ extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* dvec, float* part, void* dq,
     void* dk, void* dv, int B, int Sq, int Skv, int H, int K, int D,
-    int dtype, int causal, int window, float softcap, void* stream) {
+    int dtype, int causal, int window, float softcap, float scale,
+    void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return bwd::launch_d(dtype, q, k, v, o, dout, lse, dvec, part, dq, dk, dv,
-                       B, Sq, Skv, H, K, D, causal, window, softcap,
+                       B, Sq, Skv, H, K, D, causal, window, softcap, scale,
                        (cudaStream_t)stream);
 }

@@ -2,10 +2,12 @@
 (``csrc/flash_attention.cu``), forward and backward, with their plain
 versions.
 
-``flash_attention(q, k, v, causal=, window=, softcap=, return_lse=)`` is
-forward softmax attention over q (B,Sq,H,D) and k, v (B,Skv,K,D) with
-K | H (grouped-query heads), causal and/or a sliding window, an optional
-tanh softcap, float32 inside and out in q's dtype; with ``return_lse``
+``flash_attention(q, k, v, causal=, window=, softcap=, scale=,
+return_lse=)`` is forward softmax attention over q (B,Sq,H,D) and k, v
+(B,Skv,K,D) with K | H (grouped-query heads), causal and/or a sliding
+window, an optional tanh softcap, the scores scaled by ``scale`` (1/√D
+by default; a caller that zero-pads its heads to one of ``HEAD_DIMS``
+passes its own), float32 inside and out in q's dtype; with ``return_lse``
 it also returns the float32 row log-sum-exp (B,H,Sq) that the backward
 recomputes the probabilities from.  ``flash_attention_bwd(q, k, v, o,
 lse, do, ...)`` is its gradient -> (dq, dk, dv) in the inputs' dtype.
@@ -27,6 +29,7 @@ with inputs that require grad, outside that Function, raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -63,17 +66,28 @@ def _check_call(name, q, k, window):
     return B, Sq, H, D, Skv, K
 
 
+def _scale(scale, D: int) -> float:
+    """The scores' scale as the C entry points take it: 1/√D for None."""
+    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+    if not math.isfinite(scale) or scale <= 0.0:
+        raise ValueError(f"flash_attention: scale {scale} is not > 0")
+    return scale
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, return_lse: bool = False):
+                    softcap: float = 0.0, scale=None,
+                    return_lse: bool = False):
     """q: (B,Sq,H,D); k, v: (B,Skv,K,D) -> o (B,Sq,H,D) in q's dtype, and
-    with ``return_lse`` (o, lse (B,H,Sq) float32)."""
+    with ``return_lse`` (o, lse (B,H,Sq) float32).  ``scale`` None is
+    1/√D."""
     _no_grad_inputs("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap,
+                                       softcap=softcap, scale=scale,
                                        return_lse=return_lse)
     B, Sq, H, D, Skv, K = _check_call("flash_attention", q, k, window)
+    scale = _scale(scale, D)
     dev = q.device
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check("q", q, (B, Sq, H, D), dev, q.dtype)
@@ -88,28 +102,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lse.fill_(ref.NEG_INF)
         return (o, lse) if return_lse else o
     fn = _fn("flash_attention", "flash_attention_launch",
-             [P] * 5 + [I] * 9 + [ctypes.c_float, P])
+             [P] * 5 + [I] * 9 + [ctypes.c_float] * 2 + [P])
     with on_device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  None if lse is None else lse.data_ptr(),
                  B, Sq, Skv, H, K, D, DTYPES[q.dtype], int(bool(causal)),
-                 int(window), float(softcap), current_stream(dev))
+                 int(window), float(softcap), scale, current_stream(dev))
     _raise_on(err, "flash_attention")
     flash_attention_launches.add()
     return (o, lse) if return_lse else o
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0, softcap: float = 0.0):
+                        window: int = 0, softcap: float = 0.0, scale=None):
     """The gradient of ``flash_attention``: q, o, do (B,Sq,H,D); k, v
-    (B,Skv,K,D); lse (B,H,Sq) float32 as the forward returned it ->
-    (dq, dk, dv) in the inputs' dtype."""
+    (B,Skv,K,D); lse (B,H,Sq) float32 as the forward returned it; the
+    forward's ``scale`` -> (dq, dk, dv) in the inputs' dtype."""
     _no_grad_inputs("flash_attention_bwd", q, k, v, o, do)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal, window=window,
-                                           softcap=softcap)
+                                           softcap=softcap, scale=scale)
     B, Sq, H, D, Skv, K = _check_call("flash_attention_bwd", q, k, window)
+    scale = _scale(scale, D)
     dev, dt = q.device, q.dtype
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     for name, t, shape in (("q", q, (B, Sq, H, D)), ("k", k, (B, Skv, K, D)),
@@ -125,14 +140,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     part = (torch.empty((2, B, Skv, H, D), dtype=torch.float32, device=dev)
             if dt == torch.bfloat16 else None)
     fn = _fn("flash_attention", "flash_attention_bwd_launch",
-             [P] * 11 + [I] * 9 + [ctypes.c_float, P])
+             [P] * 11 + [I] * 9 + [ctypes.c_float] * 2 + [P])
     with on_device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
                  None if part is None else part.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, Sq, Skv, H, K, D, DTYPES[dt], int(bool(causal)),
-                 int(window), float(softcap), current_stream(dev))
+                 int(window), float(softcap), scale, current_stream(dev))
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd_launches.add()
     return dq, dk, dv

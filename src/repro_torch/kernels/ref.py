@@ -20,14 +20,16 @@ _LOG_2PI = math.log(2.0 * math.pi)
 NEG_INF = -2.0 ** 30
 
 
-def _flash_scores(q, k, causal, window, softcap):
-    """Scores of ``flash_attention_ref`` (B,K,G,Sq,Skv) float32: scaled,
-    softcapped, masked with ``NEG_INF``; and the softcap's tanh (None
-    without one), whose 1 − tanh² the gradient takes."""
+def _flash_scores(q, k, causal, window, softcap, scale=None):
+    """Scores of ``flash_attention_ref`` (B,K,G,Sq,Skv) float32: scaled
+    (by ``scale``, or over √D when it is None), softcapped, masked with
+    ``NEG_INF``; and the softcap's tanh (None without one), whose
+    1 − tanh² the gradient takes."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, K, H // K, D).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / math.sqrt(D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    s = s / math.sqrt(D) if scale is None else s * scale
     t = None
     if softcap:
         t = torch.tanh(s / softcap)
@@ -43,14 +45,15 @@ def _flash_scores(q, k, causal, window, softcap):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        return_lse=False):
+                        scale=None, return_lse=False):
     """q: (B,Sq,H,D); k,v: (B,Skv,K,D) -> (B,Sq,H,D).  Dense masked
     softmax attention in float32, out in q's dtype: the function the
-    flash kernel must equal.  Query and key positions both count from 0;
+    flash kernel must equal.  Scores are scaled by ``scale`` (1/√D when
+    None) before the softcap.  Query and key positions both count from 0;
     masked scores take ``NEG_INF``, not -inf.  With ``return_lse`` also
     the row log-sum-exp of the masked scores, (B,H,Sq) float32."""
     B, Sq, H, D = q.shape
-    s, _ = _flash_scores(q, k, causal, window, softcap)
+    s, _ = _flash_scores(q, k, causal, window, softcap, scale)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     out = out.reshape(B, Sq, H, D).to(q.dtype)
@@ -60,16 +63,17 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0,
-                            softcap=0.0):
+                            softcap=0.0, scale=None):
     """The gradient of ``flash_attention_ref`` -> (dq, dk, dv) in the
     inputs' dtype, dense and float32 inside: P = exp(s − lse) from the
     forward's lse (masked pairs 0), D = rowsum(dO·O) from its output,
-    dS = P (dP − D), times 1 − tanh² under a softcap, over √D; dk and dv
-    summed over the H/K query heads of each KV head."""
+    dS = P (dP − D), times 1 − tanh² under a softcap, times the scale
+    (over √D when ``scale`` is None); dk and dv summed over the H/K query
+    heads of each KV head."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
-    s, t = _flash_scores(q, k, causal, window, softcap)
+    s, t = _flash_scores(q, k, causal, window, softcap, scale)
     p = torch.exp(s - lse.float().reshape(B, K, G, Sq)[..., None])
     qg = q.reshape(B, Sq, K, G, D).float()
     dog = do.reshape(B, Sq, K, G, D).float()
@@ -78,7 +82,7 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0,
     ds = p * (dp - dvec.permute(0, 2, 3, 1)[..., None])
     if t is not None:
         ds = ds * (1.0 - t * t)
-    ds = ds / math.sqrt(D)
+    ds = ds / math.sqrt(D) if scale is None else ds * scale
     dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
     dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
     dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)

@@ -1,7 +1,7 @@
-"""Grouped-query attention, global and sliding-window: training, prefill
-and decode.
+"""Attention: grouped-query (global and sliding-window) and MLA, for
+training, prefill and decode.
 
-The port's copy of the GQA part of the reference's
+The port's copy of the GQA and MLA parts of the reference's
 ``models/attention.py``.  Training's and the prefill's self-attention go
 through ``ops.flash_attention`` — the hand-written CUDA kernels forward
 and backward on the card, the dense oracle and its plain gradient on the
@@ -9,8 +9,15 @@ CPU — which computes what the reference's chunked
 ``multihead_attention`` computes when positions are ``arange(S)``, as
 they always are there; its scores are float32 inside the kernel
 whatever the compute dtype.  Decode is plain torch, as the reference's is
-XLA: one query against the whole cache, float32 scores.  MLA and
-cross-attention are not ported yet (ROADMAP.md §1).
+XLA: one query against the whole cache, float32 scores.
+
+MLA (DeepSeek): prefill and training use the expanded form, whose query
+and key heads (``qk_nope_dim + qk_rope_dim`` wide) and value heads
+(``v_head_dim``) the kernel takes zero-padded to one of its head dims,
+with the scale of the unpadded width (zero columns add nothing to a dot
+product); decode uses the absorbed form, whose cache is the compressed
+latent (``kv_lora_rank`` + ``qk_rope_dim`` floats a token).
+Cross-attention is not ported yet (ROADMAP.md §1).
 """
 from __future__ import annotations
 
@@ -18,8 +25,10 @@ import math
 from typing import Dict
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig
 
@@ -32,12 +41,27 @@ NEG_INF = -2.0 ** 30  # safe for f32/bf16 masks (avoid actual -inf NaN paths)
 # parameter init
 # ==========================================================================
 def init_attention(init: L.Init, cfg: ModelConfig) -> Params:
+    if cfg.mla:
+        return _init_mla(init, cfg)
     hd = cfg.hd
     return {
         "wq": L.init_dense(init, cfg.d_model, cfg.n_heads * hd, cfg),
         "wk": L.init_dense(init, cfg.d_model, cfg.n_kv_heads * hd, cfg),
         "wv": L.init_dense(init, cfg.d_model, cfg.n_kv_heads * hd, cfg),
         "wo": L.init_dense(init, cfg.n_heads * hd, cfg.d_model, cfg),
+    }
+
+
+def _init_mla(init: L.Init, cfg: ModelConfig) -> Params:
+    H, R, d = cfg.n_heads, cfg.kv_lora_rank, cfg.d_model
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq": L.init_dense(init, d, H * qd, cfg),
+        "w_dkv": L.init_dense(init, d, R, cfg),
+        "w_kr": L.init_dense(init, d, cfg.qk_rope_dim, cfg),
+        "w_uk": L.init_dense(init, R, H * cfg.qk_nope_dim, cfg),
+        "w_uv": L.init_dense(init, R, H * cfg.v_head_dim, cfg),
+        "wo": L.init_dense(init, H * cfg.v_head_dim, d, cfg),
     }
 
 
@@ -56,7 +80,9 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     x: (B,S,d); positions: (S,) = arange(S), which is what the kernel
     assumes (its query and key positions count from 0).  Returns y, and
     with ``return_kv`` (y, {"k", "v"}), the keys and values the decode
-    cache is built from."""
+    cache is built from ({"ckv", "kr"} for MLA)."""
+    if cfg.mla:
+        return _mla_forward(p, x, positions, cfg, return_kv=return_kv)
     hd = cfg.hd
     q = dense3(p["wq"], x, cfg.n_heads, hd)
     k = dense3(p["wk"], x, cfg.n_kv_heads, hd)
@@ -78,8 +104,16 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
 def init_cache_attn(cfg: ModelConfig, batch: int, cache_len: int, *,
                     window: int = 0, device=None) -> Dict[str, torch.Tensor]:
     """Zeroed KV cache entry for one attention layer: a ring of
-    min(cache_len, window) slots when a window is set."""
+    min(cache_len, window) slots when a window is set; for MLA the latent
+    ``ckv`` (B,S,kv_lora_rank) and the shared rope key ``kr``
+    (B,S,qk_rope_dim)."""
     S = min(cache_len, window) if window else cache_len
+    dt = cfg.compute_dtype
+    if cfg.mla:
+        return {"ckv": torch.zeros((batch, S, cfg.kv_lora_rank), dtype=dt,
+                                   device=device),
+                "kr": torch.zeros((batch, S, cfg.qk_rope_dim), dtype=dt,
+                                  device=device)}
     shape = (batch, S, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
@@ -118,6 +152,8 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     cache's own tensors (the reference returns new arrays): a serving
     cache is owned by its decode loop, and this saves a copy of every
     attention layer's cache a step."""
+    if cfg.mla:
+        return _mla_decode(p, x, cache, pos, cfg)
     hd = cfg.hd
     B = x.shape[0]
     q = dense3(p["wq"], x, cfg.n_heads, hd)[:, 0]              # (B,H,D)
@@ -154,3 +190,76 @@ def _cache_positions(pos: torch.Tensor, S: int, window: int) -> torch.Tensor:
         cand = cur - ((cur % S) - idx) % S
         return torch.where(cand >= 0, cand, -1)
     return torch.where(idx <= pos[:, None], idx, -1)
+
+
+# ==========================================================================
+# MLA
+# ==========================================================================
+def _mla_qkr(p, x, positions, cfg):
+    q = dense3(p["wq"], x, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim],
+                                 dim=-1)
+    return q_nope, L.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def padded_head_dim(cfg: ModelConfig) -> int:
+    """The kernel's head dim that MLA's query/key and value heads are
+    zero-padded to: the smallest of ``HEAD_DIMS`` that holds both."""
+    width = max(cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+    return next(d for d in HEAD_DIMS if d >= width)
+
+
+def _mla_forward(p, x, positions, cfg, *, return_kv=False):
+    """Expanded MLA for training and prefill: every head's keys and values
+    rebuilt from the latent, one rope key shared by all heads."""
+    B, S, _ = x.shape
+    H, rope = cfg.n_heads, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_qkr(p, x, positions, cfg)
+    ckv = L.dense(p["w_dkv"], x)                               # (B,S,R)
+    kr = L.dense(p["w_kr"], x).reshape(B, S, 1, rope)
+    kr = L.apply_rope(kr, positions, cfg.rope_theta)           # shared head
+    k_nope = L.dense(p["w_uk"], ckv).reshape(B, S, H, cfg.qk_nope_dim)
+    v = L.dense(p["w_uv"], ckv).reshape(B, S, H, cfg.v_head_dim)
+    qd = cfg.qk_nope_dim + rope
+    Dp = padded_head_dim(cfg)
+    q = F.pad(torch.cat([q_nope, q_rope], dim=-1), (0, Dp - qd))
+    k = F.pad(torch.cat([k_nope, kr.expand(B, S, H, rope)], dim=-1),
+              (0, Dp - qd))
+    out = ops.flash_attention(q, k, F.pad(v, (0, Dp - cfg.v_head_dim)),
+                              causal=True, scale=1.0 / math.sqrt(qd))
+    y = L.dense(p["wo"], out[..., :cfg.v_head_dim].reshape(B, S, -1))
+    if return_kv:
+        return y, {"ckv": ckv, "kr": kr[:, :, 0]}
+    return y
+
+
+def _mla_decode(p, x, cache, pos, cfg):
+    """Absorbed MLA decode: scores in the compressed latent space, the
+    cache holding kv_lora_rank + qk_rope_dim floats a token.  The new
+    latent row is written into the cache's own tensors, as ``attn_decode``
+    writes its KV row."""
+    B = x.shape[0]
+    H, R = cfg.n_heads, cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = _mla_qkr(p, x, pos[:, None], cfg)        # (B,1,H,*)
+    # absorb W_uk: q_lat[b,h,r] = sum_d q_nope[b,h,d] * W_uk[r, h*d]
+    w_uk = p["w_uk"]["w"].reshape(R, H, cfg.qk_nope_dim).to(x.dtype)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
+    ckv1 = L.dense(p["w_dkv"], x)[:, 0]                        # (B,R)
+    kr1 = L.dense(p["w_kr"], x)                                # (B,1,rope)
+    kr1 = L.apply_rope(kr1[:, :, None], pos[:, None],
+                       cfg.rope_theta)[:, 0, 0]
+    ckv = _cache_insert(cache["ckv"], ckv1, pos)
+    kr = _cache_insert(cache["kr"], kr1, pos)
+    kv_pos = _cache_positions(pos, ckv.shape[1], 0)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
+         + torch.einsum("bhe,bse->bhs", q_rope[:, 0].float(), kr.float())
+         ) * scale
+    valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    prob = torch.softmax(s, dim=-1).to(x.dtype)
+    out_lat = torch.einsum("bhs,bsr->bhr", prob, ckv)          # (B,H,R)
+    w_uv = p["w_uv"]["w"].reshape(R, H, cfg.v_head_dim).to(x.dtype)
+    out = torch.einsum("bhr,rhd->bhd", out_lat, w_uv)
+    y = L.dense(p["wo"], out.reshape(B, 1, -1)[:, 0])[:, None]
+    return y, {"ckv": ckv, "kr": kr}

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.model import tree_map
+from repro_torch.models.model import model_groups, tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -42,11 +42,17 @@ def _tensor(a, device) -> torch.Tensor:
 def unstack_groups(cfg: ModelConfig, groups: List[Dict[str, Any]],
                    population: bool = False) -> List:
     """The reference's per-group nests (``{str(j): leaves with a leading
-    repeats dim}``, one per ``cfg.layer_groups()`` entry) -> one nest per
-    layer, in stack order.  Serves its parameters and its caches alike;
-    with ``population`` the repeats dim is the second."""
+    repeats dim}``, one per group of its ``build_groups``, which
+    ``model_groups`` copies: an MoE stack's dense first layers are a group
+    of their own) -> one nest per layer, in stack order.  Serves its
+    parameters, training state and caches alike; with ``population`` the
+    repeats dim is the second."""
+    specs = model_groups(cfg)
+    if len(groups) != len(specs):
+        raise ValueError(f"{cfg.name}: {len(groups)} layer groups, the "
+                         f"config has {len(specs)}")
     layers = []
-    for (pattern, repeats), group in zip(cfg.layer_groups(), groups):
+    for (pattern, repeats), group in zip(specs, groups):
         for r in range(repeats):
             idx = (slice(None), r) if population else r
             for j in range(len(pattern)):

@@ -1,16 +1,19 @@
-"""The LM of the port, for the dense and hybrid families.
+"""The LM of the port, for the dense, hybrid and MoE families.
 
 The port's copy of the reference's ``models/model.py``:
   dense    decoder-only transformer (GQA attention, MLP)
   hybrid   Griffin-style (RG-LRU, RG-LRU, local-attn) stacks
+  moe      decoder-only transformer (GQA or MLA attention; MoE FFN after
+           ``first_dense_layers`` layers with a dense MLP)
 
-The reference scans homogeneous layer groups whose parameters carry a
-leading ``repeats`` dim; eager PyTorch compiles nothing, so the port keeps
-one flat list of layers in stack order (``LM.specs``, ``params["layers"]``,
-``cache["layers"]``), and ``models/convert.py`` unstacks reference weights
-(and optimizer state) into it.  The MoE, MLA, encoder-decoder, VLM and
-xLSTM families are not ported yet (ROADMAP.md §1): ``LM`` raises
-``NotImplementedError`` for them.
+The reference scans homogeneous layer groups (``build_groups``) whose
+parameters carry a leading ``repeats`` dim; eager PyTorch compiles
+nothing, so the port keeps one flat list of layers in stack order
+(``LM.specs``, ``params["layers"]``, ``cache["layers"]``), and
+``models/convert.py`` unstacks reference weights (and optimizer state)
+into it along the same groups (``model_groups``).  The encoder-decoder,
+VLM and xLSTM families and parallel blocks are not ported yet
+(ROADMAP.md §1): ``LM`` raises ``NotImplementedError`` for them.
 
 API (functions of plain dicts of tensors; ``torch.func`` composes with
 ``forward`` and ``loss`` when ``cfg.remat`` is "none"):
@@ -46,6 +49,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.common import (ATTN, LOCAL_ATTN, RGLRU,
                                        ModelConfig)
@@ -83,23 +87,38 @@ class _TiedCast(torch.autograd.Function):
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     kind: str          # attn | local | rglru
-    ffn: str           # mlp | none
+    ffn: str           # mlp | dense_mlp | moe | none
+
+
+def model_groups(cfg: ModelConfig
+                 ) -> Tuple[Tuple[Tuple[LayerSpec, ...], int], ...]:
+    """The reference's layer groups (its ``build_groups``): ((pattern of
+    layer specs, repeats), ...) in stack order.  An MoE stack is
+    ``first_dense_layers`` x (attn, dense_mlp), then (attn, moe) for the
+    rest; any other stack follows ``cfg.layer_groups()``."""
+    if cfg.moe:
+        out = []
+        if cfg.first_dense_layers:
+            out.append(((LayerSpec(ATTN, "dense_mlp"),),
+                        cfg.first_dense_layers))
+        out.append(((LayerSpec(ATTN, "moe"),),
+                    cfg.n_layers - cfg.first_dense_layers))
+        return tuple(out)
+    ffn = "none" if cfg.d_ff == 0 else "mlp"
+    return tuple((tuple(LayerSpec(k, ffn) for k in pattern), reps)
+                 for pattern, reps in cfg.layer_groups())
 
 
 def build_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
     """One spec per layer, in stack order."""
-    ffn = "none" if cfg.d_ff == 0 else "mlp"
-    return tuple(LayerSpec(k, ffn) for k in cfg.pattern)
+    return tuple(spec for pattern, reps in model_groups(cfg)
+                 for _ in range(reps) for spec in pattern)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     why = None
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "hybrid", "moe"):
         why = f"the {cfg.family} family"
-    elif cfg.moe:
-        why = "MoE"
-    elif cfg.mla:
-        why = "MLA"
     elif cfg.parallel_block:
         why = "parallel attention+FFN blocks"
     elif cfg.pos_kind not in ("rope", "none"):
@@ -111,8 +130,8 @@ def _check_supported(cfg: ModelConfig) -> None:
     if why:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported yet; the port's LM runs the "
-            "dense and hybrid families, and ROADMAP.md §1 queues the rest "
-            "(MoE, MLA, encoder-decoder, VLM, mLSTM/sLSTM)")
+            "dense, hybrid and MoE families, and ROADMAP.md §1 queues the "
+            "rest (parallel blocks, encoder-decoder, VLM, mLSTM/sLSTM)")
 
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
@@ -145,16 +164,31 @@ def _init_layer(init: L.Init, spec: LayerSpec, cfg: ModelConfig) -> Params:
         p["attn"] = A.init_attention(init, cfg)
     else:
         p["rglru"] = R.init_rglru_block(init, cfg)
-    if spec.ffn == "mlp":
+    if spec.ffn != "none":
         p["ln2"] = L.init_norm(init, cfg.d_model, cfg)
+    if spec.ffn == "mlp":
         p["ffn"] = L.init_mlp(init, cfg.d_model, cfg.d_ff, cfg)
+    elif spec.ffn == "dense_mlp":
+        p["ffn"] = L.init_mlp(init, cfg.d_model, cfg.dense_d_ff or cfg.d_ff,
+                              cfg)
+    elif spec.ffn == "moe":
+        p["ffn"] = M.init_moe(init, cfg)
     return p
+
+
+def _ffn_apply(spec: LayerSpec, p: Params, x, cfg
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's FFN -> (y, its MoE aux loss, float32; 0 for an MLP)."""
+    if spec.ffn == "moe":
+        return M.moe_forward(p["ffn"], x, cfg)
+    return (L.mlp(p["ffn"], x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
                collect_cache: bool = False, cache_len: int = 0):
-    """Returns (x, the layer's decode-cache entry, {} unless
-    ``collect_cache``)."""
+    """Returns (x, the layer's MoE aux loss, its decode-cache entry: {}
+    unless ``collect_cache``)."""
     eps = cfg.norm_eps
     h = L.apply_norm(p["ln1"], x, eps)
     entry: Params = {}
@@ -173,9 +207,10 @@ def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
         else:
             y = R.rglru_forward(p["rglru"], h, cfg)
         x = x + y
-    if spec.ffn != "none":
-        x = x + L.mlp(p["ffn"], L.apply_norm(p["ln2"], x, eps), cfg)
-    return x, entry
+    if spec.ffn == "none":
+        return x, torch.zeros((), dtype=torch.float32, device=x.device), entry
+    ff, aux = _ffn_apply(spec, p, L.apply_norm(p["ln2"], x, eps), cfg)
+    return x + ff, aux, entry
 
 
 #: the matrix products whose outputs remat "dots" keeps
@@ -191,21 +226,24 @@ def _save_dots(ctx, op, *args, **kwargs):
 def _pad_kv(kv: Params, cache_len: int, window: int, cfg) -> Params:
     """Fit prefill K/V into the fixed cache buffer (ring-layout for local:
     the last ``buf_len`` entries, the one of position p at slot
-    p % buf_len)."""
+    p % buf_len).  Entries are (B,S,...) of any rank (MLA's are 3-D):
+    only axis 1 is padded."""
     out = {}
     S = next(iter(kv.values())).shape[1]
     buf_len = min(cache_len, window) if window else cache_len
+
+    def pad_seq(v, n):
+        return F.pad(v, (0, 0) * (v.dim() - 2) + (0, n))
+
     for name, v in kv.items():
         if window:
             tail = v[:, -buf_len:] if S >= buf_len else v
             keep = tail.shape[1]
             start = (S - keep) % buf_len
-            padded = F.pad(tail, (0, 0, 0, 0, 0, buf_len - keep))
-            out[name] = torch.roll(padded, start, dims=1).to(
-                cfg.compute_dtype)
+            out[name] = torch.roll(pad_seq(tail, buf_len - keep), start,
+                                   dims=1).to(cfg.compute_dtype)
         else:
-            out[name] = F.pad(v, (0, 0, 0, 0, 0, cache_len - S)).to(
-                cfg.compute_dtype)
+            out[name] = pad_seq(v, cache_len - S).to(cfg.compute_dtype)
     return out
 
 
@@ -222,7 +260,8 @@ def _layer_decode(spec: LayerSpec, p: Params, x, cache: Params, pos, cfg):
         y, new = R.rglru_decode(p["rglru"], h, cache, cfg)
         x = x + y
     if spec.ffn != "none":
-        x = x + L.mlp(p["ffn"], L.apply_norm(p["ln2"], x, eps), cfg)
+        ff, _ = _ffn_apply(spec, p, L.apply_norm(p["ln2"], x, eps), cfg)
+        x = x + ff
     return x, new
 
 
@@ -298,7 +337,7 @@ class LM:
     # ------------------------------------------------------------ training
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: {"tokens": (B,S)} -> (logits (B,S,V) in the compute
-        dtype, the MoE aux loss: 0 for the families ported)."""
+        dtype, the MoE aux loss summed over layers: 0 without MoE)."""
         cfg = self.cfg
         out_table = None
         table = params["embed"]["table"]
@@ -313,12 +352,13 @@ class LM:
         positions = torch.arange(x.shape[1], device=x.device)
 
         def layer(spec, lp, x):
-            return _layer_fwd(spec, lp, x, positions, self.cfg)[0]
+            return _layer_fwd(spec, lp, x, positions, self.cfg)[:2]
 
         step = self._maybe_remat(layer)
-        for spec, lp in zip(self.specs, params["layers"]):
-            x = step(spec, lp, x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for spec, lp in zip(self.specs, params["layers"]):
+            x, a = step(spec, lp, x)
+            aux = aux + a
         return self._unembed(params, x, out_table), aux
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -351,8 +391,8 @@ class LM:
         positions = torch.arange(S, device=x.device)
         layers: List[Params] = []
         for spec, lp in zip(self.specs, params["layers"]):
-            x, entry = _layer_fwd(spec, lp, x, positions, self.cfg,
-                                  collect_cache=True, cache_len=cache_len)
+            x, _, entry = _layer_fwd(spec, lp, x, positions, self.cfg,
+                                     collect_cache=True, cache_len=cache_len)
             layers.append(entry)
         logits = self._unembed(params, x[:, -1:])[:, 0]
         cache = {"layers": layers,

@@ -621,7 +621,8 @@ def test_lse_is_the_row_log_sum_exp():
     case = FLASH_CASES["gqa_ragged"]
     causal, window, softcap = case[6:]
     _, (q, k, v) = _flash_inputs(case, "f32", seed=2)
-    o, lse = ops._FlashAttention.apply(q, k, v, causal, window, softcap)
+    o, lse = ops._FlashAttention.apply(q, k, v, causal, window, softcap,
+                                       None)
     assert torch.equal(o, ops.flash_attention(q, k, v, causal=causal,
                                               window=window, softcap=softcap))
     B, Sq, H, D = q.shape

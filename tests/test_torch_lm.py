@@ -6,15 +6,22 @@ counterpart in ``repro.models`` on the same float32 weights and inputs
 inputs made with numpy from a seed); then the whole ``LM`` — prefill
 logits and caches, then 8 decode steps — for reduced ``recurrentgemma-2b``
 (3 layers, and 8 layers so that a group repeats and a tail group
-follows) and reduced ``granite-8b``, ``granite-3-8b`` and
+follows), reduced ``granite-8b``, ``granite-3-8b`` and
 ``phi3-medium-14b``, with prompts shorter and longer than
-the reduced window of 32; and ``serve`` against the reference's ``serve``
-token for token.  The JAX outputs are made once per module (fixtures).
+the reduced window of 32, and the MoE family: reduced
+``granite-moe-3b-a800m`` (GQA, MoE) and ``deepseek-v2-lite-16b`` (MLA,
+a dense first layer, then MoE layers) at depth 3; ``serve`` against the
+reference's ``serve`` token for token; and, for the MoE family, ``loss``
+(its router aux loss included) and its gradients against
+``jax.value_and_grad``.  The JAX outputs are made once per module
+(fixtures).
 
 Tolerances, float32 throughout: 1e-5 absolute for one layer's outputs
 (O(1) values, the same operations in other orders); 1e-4 absolute for
 whole-model logits and caches, where those differences pass through up
-to 8 layers.  Greedy tokens must be equal.
+to 8 layers.  Greedy tokens must be equal.  The MoE loss 1e-5 relative
+and its gradients 1e-4 of each leaf's largest magnitude, as
+``tests/test_torch_train.py`` holds the dense LM's.
 """
 import dataclasses
 
@@ -34,6 +41,7 @@ from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import rglru_scan as krg
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps as tsteps
 from repro_torch.models import LM
 from repro_torch.models import attention as TA
 from repro_torch.models import layers as TL
@@ -88,11 +96,13 @@ def _x(shape, seed=0, scale=1.0):
 
 # ------------------------------------------------------------- configs
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-8b",
-                                  "granite-3-8b", "phi3-medium-14b"])
+                                  "granite-3-8b", "phi3-medium-14b",
+                                  "granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
 def test_configs_match_reference(arch):
     """The port's copies of the configs are the reference's, field for
     field (less ``use_pallas``), full size and reduced, with the same
-    layer groups and parameter count."""
+    layer groups and parameter count (full size too)."""
     for jc, tc in ((jget_config(arch), get_config(arch)), _cfgs(arch),
                    _cfgs(arch, n_layers=8)):
         want = dataclasses.asdict(jc)
@@ -102,17 +112,18 @@ def test_configs_match_reference(arch):
         assert tc.pattern == jc.pattern
     jc, tc = _cfgs(arch, n_layers=8)
     assert tc.param_count() == jc.param_count()
+    assert get_config(arch).param_count() == jget_config(arch).param_count()
 
 
 def test_registry_runs_only_ported_archs():
-    assert sorted(list_archs()) == ["granite-3-8b", "granite-8b",
+    assert sorted(list_archs()) == ["deepseek-v2-lite-16b", "granite-3-8b",
+                                    "granite-8b", "granite-moe-3b-a800m",
                                     "phi3-medium-14b", "recurrentgemma-2b"]
-    for name in ("xlstm-125m", "deepseek-v2-lite-16b", "whisper-medium",
+    for name in ("xlstm-125m", "whisper-medium", "llava-next-34b",
                  "command-r-plus-104b", "no-such-arch"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(name)
-    for cfg in (jget_config("xlstm-125m"), jget_config("granite-moe-3b-a800m"),
-                jget_config("deepseek-v2-lite-16b"),
+    for cfg in (jget_config("xlstm-125m"), jget_config("command-r-plus-104b"),
                 jget_config("whisper-medium"), jget_config("llava-next-34b")):
         tcfg = get_config("granite-8b")
         fields = {f.name for f in dataclasses.fields(tcfg)}
@@ -272,6 +283,8 @@ LM_CASES = {
     "granite": ("granite-8b", {}, 24),
     "granite3": ("granite-3-8b", {}, 24),
     "phi3": ("phi3-medium-14b", {}, 20),
+    "granite_moe": ("granite-moe-3b-a800m", {"n_layers": 3}, 24),
+    "deepseek": ("deepseek-v2-lite-16b", {"n_layers": 3}, 20),
 }
 GEN = 8
 
@@ -328,7 +341,9 @@ def test_lm_prefill_and_decode_match_reference(lm_runs, name):
 
 
 @pytest.mark.parametrize("arch,over", [("recurrentgemma-2b", {"n_layers": 8}),
-                                       ("granite-8b", {})])
+                                       ("granite-8b", {}),
+                                       ("deepseek-v2-lite-16b",
+                                        {"n_layers": 3})])
 def test_init_cache_matches_reference(arch, over):
     """Zeroed decode caches of the same shapes and values, layer by layer
     (a window ring of min(cache_len, window) slots for local attention)."""
@@ -345,7 +360,9 @@ def test_init_cache_matches_reference(arch, over):
 
 
 @pytest.mark.parametrize("arch,prompt_len", [("recurrentgemma-2b", 40),
-                                             ("granite-8b", 12)])
+                                             ("granite-8b", 12),
+                                             ("granite-moe-3b-a800m", 12),
+                                             ("deepseek-v2-lite-16b", 12)])
 def test_serve_matches_reference_tokens(arch, prompt_len):
     """``serve(..., device="cpu", params=...)`` on the reference's own
     weights (converted) gives the reference ``serve``'s tokens, and its
@@ -377,3 +394,54 @@ def test_serve_own_weights_run_the_cli(capsys):
     tserve.main(["--arch", "recurrentgemma-2b", "--reduced", "--device",
                  "cpu", "--batch", "2", "--prompt-len", "40", "--gen", "4"])
     assert "generated shape: (2, 4)" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------- MoE loss
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_loss_and_gradients_match_reference(arch):
+    """``LM.loss`` (cross entropy plus ``router_aux_weight`` x the aux
+    loss summed over the MoE layers) and its gradients, at depth 3, on
+    the reference's weights; remat "full" gives the same."""
+    jc, tc = _cfgs(arch, n_layers=3)
+    jparams = JM.LM(jc).init(jax.random.key(11))
+    toks = np.random.default_rng(11).integers(0, jc.vocab_size, (2, 25))
+    labels = toks[:, 1:].copy()
+    labels[0, :3] = -1
+    batch = {"tokens": toks[:, :-1].astype(np.int32),
+             "labels": labels.astype(np.int32)}
+    (jloss, jmetrics), jgrads = jax.value_and_grad(
+        JM.LM(jc).loss, has_aux=True)(
+            jparams, jax.tree.map(jnp.asarray, batch))
+    assert float(jmetrics["aux"]) > 0
+    want = params_from_reference(tc, _np(jgrads))
+    tbatch = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    for remat in ("none", "full"):
+        cfg = dataclasses.replace(tc, remat=remat)
+        params = params_from_reference(cfg, _np(jparams))
+        loss, metrics, grads = tsteps.loss_and_grads(LM(cfg), params, tbatch)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+        np.testing.assert_allclose(float(metrics["aux"]),
+                                   float(jmetrics["aux"]), rtol=1e-5)
+        np.testing.assert_allclose(float(metrics["ce"]),
+                                   float(jmetrics["ce"]), rtol=1e-5)
+        got, ref_ = list(TM.tensors(grads)), list(TM.tensors(want))
+        assert len(got) == len(ref_)
+        for g, w in zip(got, ref_):
+            w = w.numpy()
+            err = np.abs(g.numpy() - w).max()
+            assert err <= 1e-4 * max(np.abs(w).max(), 1e-12), (err, g.shape)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_serve_cli_runs_the_moe_family(arch, capsys, monkeypatch):
+    """``python -m repro_torch.launch.serve --arch ...`` serves the MoE
+    family (reduced, on the CPU); at full size with no ``--device`` it
+    asks for the card before it makes anything."""
+    tserve.main(["--arch", arch, "--reduced", "--device", "cpu", "--batch",
+                 "2", "--prompt-len", "20", "--gen", "3"])
+    assert "generated shape: (2, 3)" in capsys.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.serve(arch, 4, 3000, 64, reduced=False)
