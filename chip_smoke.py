@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card: the GP suggestion
 service, the paper's §4 HPO loop (in process, over HTTP from worker
 processes, and through a sharded fleet that loses a shard), the LM
-server (recurrentgemma-2b, and the MoE family: granite-moe-3b-a800m and
-deepseek-v2-lite-16b), the error-feedback int8 all-reduce, and LM
-training (one model, and a population of trials in one program).
+server (recurrentgemma-2b; the MoE family: granite-moe-3b-a800m and
+deepseek-v2-lite-16b; the encoder-decoder whisper-medium and the
+parallel-block command-r-plus-104b), the error-feedback int8 all-reduce,
+and LM training (one model, and a population of trials in one program).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -36,7 +37,15 @@ script exits non-zero and prints no result):
    update from the panels above must fail the limit;
    then the GP numerics on the card against the same numerics on the CPU
    at a small size, and the host wall time of each GP call of the ask
-   path at the paper's size, one thread alone.
+   path at the paper's size, one thread alone.  Last, the thread probe
+   (``phase_thread_memory``): fresh threads each run one op on the card
+   (an elementwise pass, a product, ``cholesky_ex`` on one matrix and on
+   4 lanes of 512, ``solve_triangular``), two rounds an op, and the
+   card's memory outside PyTorch's allocator is read around each round:
+   what a thread's library handles hold, and whether a later thread
+   reuses them.  ``card_memory`` lines (``free_card``) report it, as
+   ``outside_gb``, after every phase and around the service's
+   construction and teardown.
 3. the service at the paper's size — 4 concurrent ``gp`` experiments on
    one ``LocalClient`` with the prefetch pump on, each with the paper's
    budget of 300 and parallel 15 over the 3-parameter CNN space, driven
@@ -95,8 +104,9 @@ script exits non-zero and prints no result):
    ``flash_attention`` at the serve shape (B 4, S 3000, H 10, K 1, D 256,
    window 2048) in bf16 and f32, at S = 4096, at granite-8b's shape, with
    a softcap, ragged (Sq != Skv, not tile multiples) and at D = 64 and 16
-   in both types, and with 4 query heads a KV head and a window at
-   D = 128;
+   in both types, with 4 query heads a KV head and a window at D = 128,
+   and at D = 32 in both types (``gqa_ragged_d32``: a head dim between the
+   instantiated ones, which the wrapper zero-pads to 64);
    ``rglru_scan`` at the serve shape, a ragged one, S = 1, S = one time
    tile + 1 and R = 999 (4-byte staging), and at the serve shape a plain
    scan that drops the carry into every tile after the first must fail
@@ -116,6 +126,16 @@ script exits non-zero and prints no result):
    timed beside the plain version and SDPA on the unpadded layout under
    the first backend that takes it (named in the line); the bound counts
    the unpadded work.
+4c. ``flash_attention`` at the encoder-decoder family's and the parallel
+   block's prefill layouts, bf16, B 4: whisper-medium's encoder (S 1536,
+   H = K = 16, D 64, non-causal), its cross-attention (384 queries over
+   1536 keys, non-causal) and its decoder's self-attention (S 384,
+   causal), and command-r-plus-104b's (S 3000, H 96, K 8, D 128, causal),
+   held element by element to the float32 oracle with phase 4's limit, a
+   planted fault each failing it (made causal, made non-causal, KV heads
+   shifted by one); timed beside the plain version, SDPA (the first
+   backend that takes the layout, causal or not as the layout is) and
+   the bound.
 5. the LM server at full width — ``serve("recurrentgemma-2b", batch=4,
    prompt_len=3000, gen=64, reduced=False)`` with random weights from its
    seed: exactly 8 ``flash_attention`` and 18 ``rglru_scan`` launches in
@@ -149,6 +169,23 @@ script exits non-zero and prints no result):
    of router choices that differ from the float32 model's, and planted
    faults (a capacity of 1, every choice shifted one expert on, MLA at
    the padded head's scale) failing the layer limit.
+5c. whisper-medium and command-r-plus-104b served at full width —
+   ``serve(arch, batch=4, gen=64, reduced=False)``, random weights from
+   the seed: whisper at full depth (24 encoder + 24 decoder layers) over
+   1536 stub frames with prompt 384 (448 in all, its decoder's context),
+   command-r with prompt 3000 at 8 of its 64 layers (serve's config
+   lookup cut to 8; the cut is printed), each with exactly 72 and 8
+   ``flash_attention`` launches a prefill and none in decode, finite
+   logits, prefill ms, decode tokens a second and peak memory; one more
+   prefill and 8 decode steps of each under torch.profiler; then the
+   hold at full width (whisper at full depth, command-r at depth 2): the
+   kernel path against the plain bf16 path (its attention one batch row
+   at a time) and a float32 model of the same weights, every attention
+   and cross-attention layer of the prefill within ``LAYER_FACTOR`` and
+   the logits within ``LOGITS_FACTOR`` of the plain path's distance from
+   float32, and planted faults (the encoder run causal, cross-attention
+   fed the decoder's own hidden state, sinusoidal positions shifted by
+   one; command-r run as sequential blocks) failing the layer limit.
 6. the error-feedback int8 all-reduce — (a) ``int8_quantize`` against its
    plain version, bit for bit (codes and scales), at the gradient tree's
    largest leaf (the 256 000 x 2560 embedding), ragged and short inputs,
@@ -173,7 +210,8 @@ script exits non-zero and prints no result):
    at the population's folded shape (B 3, S 1024), at S = 1, 65 and
    1000, grouped-query (H 4, K 2, D 64), windows 0 and 32, softcap 30
    (q, k of std 4 so the cap bends), D 16 and 128 and non-causal, and
-   MLA's scale 1/sqrt(192) at H = K = 16, D 256, held element by element
+   MLA's scale 1/sqrt(192) at H = K = 16, D 256, and D 32 (padded to 64
+   by the wrapper) in both types, held element by element
    to the plain float32 backward of the same inputs (``FLASH_TOL`` and a
    floor, ``bwd_excess``), the kernel's lse within 1e-4 of the plain one,
    and planted faults (the oldest key of the window dropped, the softcap
@@ -228,6 +266,11 @@ their first call in the service) and prints their lines and the card.
 
 builds the kernels, runs the MoE family's attention cases and serving
 and prints their lines and the card.
+
+    python3 chip_smoke.py --encdec         # phases 1, 4c and 5c alone
+
+builds the kernels, runs the encoder-decoder and parallel-block attention
+cases and serving and prints their lines and the card.
 
     python3 chip_smoke.py --train          # phases 1 and 8 alone
 
@@ -868,7 +911,9 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     from repro_torch.kernels import gp as kgp
 
     space = hpo_space()
+    free_card("service: before its construction")
     client = LocalClient(tempfile.mkdtemp(prefix="chip-smoke-"))
+    free_card("service: constructed")
     lat, ids, values, errors = [], [], [], []
     lock = threading.Lock()
     deadline = time.monotonic() + 600
@@ -918,8 +963,10 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
                 "gp_ei": kgp.gp_ei_launches.count}
     statuses = [client.status(e) for e in exps]
     executor = pipeline.executor_snapshot() or {}
+    free_card("service: workers joined")
     client.close()
     pipeline.FitExecutor.MAX_LANES = None
+    free_card("service: closed")
     emit("service", experiments=n_exp, budget=budget, parallel=parallel,
          wall_s=wall, **percentiles_ms(lat),
          observations=sum(st.observations for st in statuses),
@@ -959,6 +1006,65 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     check(executor.get("lanes", 0) > executor.get("batched", 0),
           "no refit dispatch co-batched two experiments")
     return launches
+
+
+# -------------------------------------------------- phase 2: thread probe
+#: fresh threads a probe round starts, each running its op once on the card
+PROBE_THREADS = 8
+
+
+def phase_thread_memory():
+    """What one thread costs on the card outside PyTorch's allocator: for
+    each op the service's threads run, ``PROBE_THREADS`` fresh threads
+    run it once each, in two rounds (the second after the first's threads
+    have ended), and ``outside_gb`` is read before and after each round.
+    PyTorch keeps a cuBLAS and a cuSOLVER handle per thread that used
+    one, in pools that hand a dead thread's handles to the next thread
+    and destroy none: a first round shows what a handle holds, a second
+    whether the pool reuses it.  The cholesky_ex shapes are a lone fit's
+    and a co-batched refit's (``MAIN_NLL``)."""
+    dev = torch.device("cuda", 0)
+    k, b = MAIN_NLL
+    a = torch.randn((b, b), device=dev)
+    spd = a @ a.T + b * torch.eye(b, device=dev)
+    lanes = spd.expand(k, b, b).contiguous()
+    low = torch.linalg.cholesky(spd)
+    ops = {"elementwise": lambda: (a * 2.0).sum(),
+           "matmul": lambda: a @ a,
+           "cholesky_ex": lambda: torch.linalg.cholesky_ex(spd),
+           "cholesky_ex_lanes": lambda: torch.linalg.cholesky_ex(lanes),
+           "solve_triangular": lambda: torch.linalg.solve_triangular(
+               low, a, upper=False)}
+    torch.cuda.synchronize()
+    free_card("thread probe: before")
+    for name, op in ops.items():
+        for rnd in (1, 2):
+            errors = []
+
+            def run(op=op):
+                try:
+                    with torch.cuda.device(dev):
+                        op()
+                        torch.cuda.synchronize()
+                except Exception as e:  # re-raised below, after the join
+                    errors.append(f"{type(e).__name__}: {e}")
+
+            before = outside_gb()
+            threads = [threading.Thread(target=run)
+                       for _ in range(PROBE_THREADS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+            check(not errors and not any(t.is_alive() for t in threads),
+                  f"thread probe {name}: {errors[:2]}")
+            after = outside_gb()
+            emit("thread_memory", op=name, round=rnd,
+                 threads=PROBE_THREADS, outside_gb_before=before,
+                 outside_gb_after=after,
+                 per_thread_mb=(after - before) * 1e3 / PROBE_THREADS)
+    del a, spd, lanes, low
+    free_card("thread probe: after")
 
 
 # ------------------------------------------------------------ phase 3b
@@ -1749,6 +1855,10 @@ FLASH_CASES = (
     ("ragged_noncausal_bf16", 3, 777, 555, 4, 4, 16, False, 0, 0.0,
      "bfloat16"),
     ("gqa4_window", 2, 1500, 1500, 16, 4, 128, True, 1000, 0.0, "bfloat16"),
+    # a head dim between the instantiated ones (the CPU tests' gqa_ragged):
+    # the wrapper zero-pads it to 64 at the scale 1/sqrt(32)
+    ("gqa_ragged_d32", 2, 70, 70, 8, 2, 32, True, 0, 0.0, "bfloat16"),
+    ("gqa_ragged_d32_f32", 2, 70, 70, 8, 2, 32, True, 0, 0.0, "float32"),
 )
 #: (name, B, S, R); the first is the serve shape of an RG-LRU layer.  The
 #: kernel's tiles are 64 steps x 64 features: S = 1 is one partial tile,
@@ -1924,12 +2034,12 @@ MOE_FLASH_CASES = (("granite_moe", 4, 3000, 24, 8, 64, 64),
                    ("mla", 4, 3000, 16, 16, 192, 128))
 
 
-def sdpa_backends(q, k, v, scale):
-    """``F.scaled_dot_product_attention`` (causal, grouped heads where K <
-    H) on q (B,S,H,Dqk), k (B,S,K,Dqk), v (B,S,K,Dv) under the first
-    backend that takes the layout, of flash, cuDNN, memory-efficient and
-    math -> (backend name, a call, its output (B,S,H,Dv)), or (None, None,
-    None) when none does."""
+def sdpa_backends(q, k, v, scale, causal: bool = True):
+    """``F.scaled_dot_product_attention`` (``causal`` or not, grouped heads
+    where K < H) on q (B,Sq,H,Dqk), k (B,Skv,K,Dqk), v (B,Skv,K,Dv) under
+    the first backend that takes the layout, of flash, cuDNN,
+    memory-efficient and math -> (backend name, a call, its output
+    (B,Sq,H,Dv)), or (None, None, None) when none does."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1939,7 +2049,8 @@ def sdpa_backends(q, k, v, scale):
         def call(backend=backend):
             with sdpa_kernel(backend):
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, scale=scale, enable_gqa=gqa)
+                    qt, kt, vt, is_causal=causal, scale=scale,
+                    enable_gqa=gqa)
         try:
             out = call()
             torch.cuda.synchronize()
@@ -2317,113 +2428,90 @@ def phase_serve():
     return launches
 
 
-# ------------------------------------------------------------ phase 5b
-MOE_SERVE = dict(batch=4, prompt_len=3000, gen=64)
-#: arch -> (its attention layers, each one ``flash_attention`` launch a
-#: prefill; the depth of the float32 hold: deepseek-v2-lite's dense layer
-#: and two MoE layers, granite-moe's first two layers; a float32 copy at
-#: full depth would be ~63 GB for deepseek)
-MOE_ARCHS = {"granite-moe-3b-a800m": (32, 2), "deepseek-v2-lite-16b": (27, 3)}
-#: decode steps of the hold, fed the kernel path's greedy tokens
-MOE_HOLD_STEPS = 4
-#: The hold keeps phase 5's LAYER_FACTOR and LOGITS_FACTOR.  bf16 routing
-#: flips a share of the router's choices (near top-k ties) against the
-#: float32 model, and a few between the kernel and plain bf16 paths; the
-#: H100's first run put the kernel path within 1.022x of the plain path's
-#: distance at every layer (0.06-0.9% of choices flipped between the two)
-#: and its logits within 1.44x, so the factors stand for the MoE family.
+# ------------------------------------------------------- phases 5b and 5c
+#: decode steps of a hold, fed the kernel path's greedy tokens
+HOLD_STEPS = 4
 
 
-def moe_hold(arch: str, depth: int) -> dict:
-    """5b's hold at full width and depth ``depth``: the kernel path, the
-    plain bf16 path and the plain float32 model on the same weights (drawn
-    in float32, cast once) and prompts; the prefill's attention and MoE
-    layers by relative norm and the logits by max |.| (phase 5's limits),
-    the share of (token, choice) pairs whose expert differs from the
-    float32 model's, and planted faults that must fail the layer limit."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import ops, ref
-    from repro_torch.launch.steps import cast_params
+def spy_attention(keep):
+    """A hold's spy on ``attention.attn_forward`` (the prefill's and
+    training's attention; decode calls ``attn_decode``): each output to
+    ``keep``."""
     from repro_torch.models import attention as MA
+    attn = MA.attn_forward
+
+    def spy(*a, **kw):
+        out = attn(*a, **kw)
+        keep(out[0] if isinstance(out, tuple) else out)
+        return out
+    return MA, dict(attn_forward=spy)
+
+
+def hold_run(cfg, params, batch, cache_len, fed, spies, ref32=None,
+             steps=HOLD_STEPS):
+    """One run of a hold: the prefill and ``steps`` decode steps, fed the
+    tokens in ``fed`` (the first run's greedy tokens, appended as it
+    makes them) -> (logits in float32 at the prefill and each step, the
+    prefill's spied outputs: float32, or each one's relative distance
+    from ``ref32``'s).  ``spies(keep)`` -> [(module, {name: wrapper})],
+    patched for the run, whose wrappers hand the outputs to ``keep``."""
     from repro_torch.models import model as M
-    from repro_torch.models import moe as MM
-    import torch.nn.functional as F
+    layers = []
 
-    dev = torch.device("cuda", 0)
-    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    def keep(y):
+        if ref32 is None:
+            layers.append(y.float())
+        else:
+            r = ref32[len(layers)]
+            layers.append(float(torch.linalg.vector_norm(y.float() - r)
+                                / torch.linalg.vector_norm(r)))
+
+    with contextlib.ExitStack() as stack, torch.inference_mode():
+        for mod, swap in spies(keep):
+            stack.enter_context(patched(mod, **swap))
+        model = M.LM(cfg)
+        cache, lg = model.prefill(params, batch, cache_len)
+        logits = [lg.float()]
+        for i in range(steps):
+            if len(fed) <= i:
+                fed.append(torch.argmax(lg, dim=-1))
+            lg, cache = model.decode_step(params, cache, fed[i])
+            logits.append(lg.float())
+    return logits, layers
+
+
+def hold_paths(arch, cfg, p32, batch, kinds, launches, spies, faults,
+               plain_attention):
+    """A hold at full width (5b, 5c): the kernel path (bf16 weights cast
+    once from the float32 ``p32``), the plain bf16 path and the plain
+    float32 model (``ops.flash_attention`` swapped for
+    ``plain_attention``), each through ``hold_run`` on the same inputs.
+    The kernel path launches ``flash_attention`` exactly ``launches``
+    times (the plain runs never), and is no further from float32 than
+    ``LAYER_FACTOR`` times the plain path at each spied output of the
+    prefill (``kinds`` names them) by relative norm, and ``LOGITS_FACTOR``
+    at the logits by max |.|.  ``faults``: {name: (config, params from
+    the bf16 weights or None for them, [(module, {name: swap})])}, each
+    run on the kernel path, prefill only, must fail the layer limit.
+    -> the hold line's fields."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import cast_params
+    B, S = batch["tokens"].shape
+    cache_len = S + HOLD_STEPS
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    B, S = MOE_SERVE["batch"], MOE_SERVE["prompt_len"]
-    p32 = M.LM(cfg).init(seed=1, device=dev, dtype=torch.float32)
     p16 = cast_params(p32, torch.bfloat16)
-    tokens = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B, S)), device=dev)
     fed = []
-
-    def run(c, params, ref32=None, steps=MOE_HOLD_STEPS):
-        """Prefill and ``steps`` decode steps -> (logits, the prefill's
-        attention and MoE outputs, float32, or each one's relative
-        distance from ``ref32``'s, its router choices (B,S,k) a layer)."""
-        layers, choices = [], []
-        attn, moe, router = MA.attn_forward, MM.moe_forward, MM._router
-
-        def keep(y):
-            if ref32 is None:
-                layers.append(y.float())
-            else:
-                r = ref32[len(layers)]
-                layers.append(float(torch.linalg.vector_norm(y.float() - r)
-                                    / torch.linalg.vector_norm(r)))
-
-        def spy_attn(*a, **kw):
-            out = attn(*a, **kw)
-            keep(out[0] if isinstance(out, tuple) else out)
-            return out
-
-        def spy_moe(p, x, c_):
-            y, aux = moe(p, x, c_)
-            if x.shape[1] > 1:
-                keep(y)
-            return y, aux
-
-        def spy_router(p, x, c_):
-            w, idx, aux = router(p, x, c_)
-            if x.shape[1] > 1:
-                choices.append(idx)
-            return w, idx, aux
-
-        model = M.LM(c)
-        with patched(MA, attn_forward=spy_attn), \
-                patched(MM, moe_forward=spy_moe, _router=spy_router), \
-                torch.inference_mode():
-            cache, lg = model.prefill(params, {"tokens": tokens},
-                                      S + MOE_HOLD_STEPS)
-            logits = [lg.float()]
-            for i in range(steps):
-                if len(fed) <= i:
-                    fed.append(torch.argmax(lg, dim=-1))
-                lg, cache = model.decode_step(params, cache, fed[i])
-                logits.append(lg.float())
-        return logits, layers, choices
-
-    def flipped(a, b):
-        """Share of (token, choice) pairs of ``a`` whose expert is not
-        among ``b``'s choices for that token."""
-        E = cfg.n_experts
-        na = F.one_hot(a, E).sum(-2)
-        nb = F.one_hot(b, E).sum(-2)
-        return float((na - nb).clamp(min=0).sum()) / a.numel()
-
     counters = lm_counters()
     counters["flash_attention"].reset()
-    kernel, kernel_layers, kernel_idx = run(cfg, p16)
-    launches = counters["flash_attention"].count
-    check(launches == depth, f"{arch} hold: {launches} flash_attention "
-          f"launches in a depth-{depth} prefill")
-    with patched(ops, flash_attention=ref.flash_attention_ref):
-        f32, layers32, idx32 = run(cfg32, p32)
-        plain, plain_rel, plain_idx = run(cfg, p16, layers32)
-    check(counters["flash_attention"].count == launches,
+    kernel, kernel_layers = hold_run(cfg, p16, batch, cache_len, fed, spies)
+    n = counters["flash_attention"].count
+    check(n == launches, f"{arch} hold: {n} flash_attention launches in "
+          f"a depth-{cfg.n_layers} prefill, not {launches}")
+    with patched(ops, flash_attention=plain_attention):
+        f32, layers32 = hold_run(cfg32, p32, batch, cache_len, fed, spies)
+        plain, plain_rel = hold_run(cfg, p16, batch, cache_len, fed, spies,
+                                    layers32)
+    check(counters["flash_attention"].count == n,
           "the plain runs launched the kernel")
     kernel_rel = [float(torch.linalg.vector_norm(y - r)
                         / torch.linalg.vector_norm(r))
@@ -2431,9 +2519,6 @@ def moe_hold(arch: str, depth: int) -> dict:
     del kernel_layers
     bf16_err = [float((p - c).abs().max()) for p, c in zip(plain, f32)]
     k_err32 = [float((k - c).abs().max()) for k, c in zip(kernel, f32)]
-    # every layer's attention, then its MoE FFN (a dense MLP is not spied)
-    kinds = [kind for i in range(depth) for kind in
-             (("attn",) if i < cfg.first_dense_layers else ("attn", "moe"))]
     check(len(kernel_rel) == len(plain_rel) == len(kinds),
           f"{arch} hold: spied {len(kernel_rel)} layers, not {len(kinds)}")
 
@@ -2452,28 +2537,15 @@ def moe_hold(arch: str, depth: int) -> dict:
         check(ke <= LOGITS_FACTOR * be, f"{arch} hold logits "
               f"{'prefill' if i == 0 else f'step {i}'}: |kernel - f32| {ke}"
               f" > {LOGITS_FACTOR} x |plain - f32| {be}")
-    flips_kernel = [flipped(a, b) for a, b in zip(kernel_idx, idx32)]
-    flips_plain = [flipped(a, b) for a, b in zip(plain_idx, idx32)]
-    flips_paths = [flipped(a, b) for a, b in zip(kernel_idx, plain_idx)]
-
-    fa = ops.flash_attention
-    E = cfg.n_experts
-    router = MM._router
-
-    def shifted(p, x, c_):
-        w, idx, aux = router(p, x, c_)
-        return w, (idx + 1) % E, aux
-
-    faults = {"capacity_1": (MM, dict(capacity=lambda c_, seq: 1)),
-              "experts_shifted_by_one": (MM, dict(_router=shifted))}
-    if cfg.mla:
-        faults["mla_default_scale"] = (ops, dict(
-            flash_attention=lambda q, k, v, **kw: fa(
-                q, k, v, **dict(kw, scale=None))))
     planted = {}
-    for fault, (mod, swap) in faults.items():
-        with patched(mod, **swap):
-            logits, rel, _ = run(cfg, p16, layers32, steps=0)
+    for fault, (c, make_params, swaps) in faults.items():
+        params = p16 if make_params is None else make_params(p16)
+        with contextlib.ExitStack() as stack:
+            for mod, swap in swaps:
+                stack.enter_context(patched(mod, **swap))
+            logits, rel = hold_run(c, params, batch, cache_len, fed, spies,
+                                   layers32, steps=0)
+        del params
         first = next((i for i, (fe, pe) in enumerate(zip(rel, plain_rel))
                       if fe > LAYER_FACTOR * pe), None)
         planted[fault] = dict(
@@ -2484,129 +2556,110 @@ def moe_hold(arch: str, depth: int) -> dict:
         check(planted[fault]["layers_reject"],
               f"{arch}: planted fault {fault} passes the layer limit: "
               f"{planted[fault]}")
-    out = dict(depth=depth, layers=kinds, steps=MOE_HOLD_STEPS,
-               layer_rel_err_kernel_vs_f32=kernel_rel,
-               layer_rel_err_plain_vs_f32=plain_rel,
-               logits_abs_err_kernel_vs_f32=k_err32,
-               logits_abs_err_plain_vs_f32=bf16_err,
-               flipped_share_kernel_vs_f32=flips_kernel,
-               flipped_share_plain_vs_f32=flips_plain,
-               flipped_share_kernel_vs_plain=flips_paths,
-               planted_faults=planted, hold_launches=launches)
-    del p32, p16, kernel, plain, f32, layers32
-    free_card(f"moe_hold {arch}")
-    return out
+    return dict(depth=cfg.n_layers, batch=B, prompt_len=S, layers=kinds,
+                steps=HOLD_STEPS, layer_rel_err_kernel_vs_f32=kernel_rel,
+                layer_rel_err_plain_vs_f32=plain_rel,
+                logits_abs_err_kernel_vs_f32=k_err32,
+                logits_abs_err_plain_vs_f32=bf16_err,
+                planted_faults=planted, hold_launches=n)
 
 
-def phase_moe_serve():
-    """5b: ``serve`` of the MoE family at full width and full depth, each
-    config spied on at ``LM.prefill`` and ``LM.decode_step`` (launches,
-    logits, the weights and prompts) and at ``moe.slots`` (pairs dropped
-    by capacity); once both have served, one more prefill and
-    ``PROFILED_STEPS`` decode steps of each under torch.profiler (after
-    both serve runs: a trace can slow later host-bound decode), then
-    ``moe_hold`` at reduced depth.  -> the LM kernels' launches summed
-    over both serve runs (counters zeroed just before each)."""
-    from repro_torch.configs import get_config
+def serve_spied(arch, cfg, batch, prompt_len, gen, n_attn, spies=()):
+    """``serve(arch, batch, prompt_len, gen, reduced=False, seed=0)`` with
+    serve's config lookup answering ``cfg`` (the published config, or a
+    cut of its depth), spied on at ``LM.prefill`` and ``LM.decode_step``
+    and through ``spies`` [(module, {name: wrapper})]: exactly ``n_attn``
+    ``flash_attention`` launches in the prefill and none in decode (the
+    counters zeroed just before), finite logits -> (the launches, a run
+    for ``profile_served``: its config, weights, inputs and the tokens
+    decode was fed, and its line: prefill ms, decode tokens a second,
+    peak memory, ...)."""
     from repro_torch.launch import serve as srv
     from repro_torch.models import model as M
-    from repro_torch.models import moe as MM
     counters = lm_counters()
     counts = lambda: {n: c.count for n, c in counters.items()}  # noqa: E731
-    total = {n: 0 for n in counters}
-    B, S, gen = (MOE_SERVE[k] for k in ("batch", "prompt_len", "gen"))
-    served = {}
-    for arch, (n_attn, _) in MOE_ARCHS.items():
-        resident_gb = free_card(f"moe_serve {arch}")
-        cfg = get_config(arch)
-        seen = {"steps": [], "drops": []}
-        prefill, decode_step, slots = M.LM.prefill, M.LM.decode_step, MM.slots
+    resident_gb = free_card(f"serve {arch}")
+    seen = {"steps": []}
+    prefill, decode_step = M.LM.prefill, M.LM.decode_step
 
-        def spy_prefill(self, params, batch, cache_len):
-            seen["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            torch.cuda.reset_peak_memory_stats()
-            cache, logits = prefill(self, params, batch, cache_len)
-            seen.update(logits=logits.float().clone(), params=params,
-                        tokens=batch["tokens"], cache_len=cache_len,
-                        prefill_launches=counts())
-            return cache, logits
+    def spy_prefill(self, params, batch_, cache_len):
+        seen["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        cache, logits = prefill(self, params, batch_, cache_len)
+        seen.update(logits=logits.float().clone(), params=params,
+                    batch=batch_, cache_len=cache_len,
+                    prefill_launches=counts())
+        return cache, logits
 
-        def spy_decode(self, params, cache, tokens):
-            logits, cache = decode_step(self, params, cache, tokens)
-            seen["steps"].append(
-                (tokens.clone(), torch.isfinite(logits).all()))
-            return logits, cache
+    def spy_decode(self, params, cache, tokens):
+        logits, cache = decode_step(self, params, cache, tokens)
+        seen["steps"].append((tokens.clone(), torch.isfinite(logits).all()))
+        return logits, cache
 
-        def spy_slots(idx, n_experts, cap):
-            dest = slots(idx, n_experts, cap)
-            seen["drops"].append(((dest == n_experts * cap).sum(),
-                                  dest.numel()))
-            return dest
+    lines = []
+    with contextlib.ExitStack() as stack:
+        for mod, swap in [(M.LM, dict(prefill=spy_prefill,
+                                      decode_step=spy_decode)),
+                          (srv, dict(get_config=lambda name: cfg)),
+                          *spies]:
+            stack.enter_context(patched(mod, **swap))
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        seqs = srv.serve(arch, batch, prompt_len, gen, reduced=False, seed=0,
+                         log=lines.append)
+        wall = time.perf_counter() - t0
+        launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    m = re.search(r"in ([\d.]+)ms; decoded (\d+) steps in ([\d.]+)ms "
+                  r"\(([\d.]+) tok/s\)", lines[-1])
+    check(m is not None, f"serve's log line: {lines}")
+    want = {n: 0 for n in counters}
+    want["flash_attention"] = n_attn
+    check(seen["prefill_launches"] == want,
+          f"{arch} prefill launches {seen['prefill_launches']}")
+    check(launches == want, f"{arch}: decode launched kernels: "
+          f"{launches} after the prefill's {seen['prefill_launches']}")
+    check(seqs.shape == (batch, gen), f"{arch} served {seqs.shape}")
+    check(len(seen["steps"]) == gen - 1, f"{arch}: decode steps missing")
+    check(bool(torch.isfinite(seen["logits"]).all())
+          and all(bool(f) for _, f in seen["steps"]),
+          f"{arch}: non-finite logits")
+    params = seen["params"]
+    line = dict(
+        arch=arch, batch=batch, prompt_len=prompt_len, gen=gen,
+        reduced=False, layers=cfg.n_layers,
+        encoder_layers=cfg.encoder_layers,
+        inputs={k: list(v.shape) for k, v in seen["batch"].items()},
+        wall_s=wall, prefill_ms=float(m.group(1)),
+        decode_ms=float(m.group(3)), decode_tok_s=float(m.group(4)),
+        decode_steps=int(m.group(2)), resident_before_gb=resident_gb,
+        peak_memory_gb=peak_gb, init_peak_memory_gb=seen["init_peak_gb"],
+        params=sum(t.numel() for t in M.tensors(params)),
+        param_gb=sum(t.numel() * t.element_size()
+                     for t in M.tensors(params)) / 1e9,
+        prefill_launches=seen["prefill_launches"], launches=launches,
+        first_tokens=seqs[:, :8].tolist())
+    run = dict(cfg=cfg, params=params, batch=seen["batch"],
+               cache_len=seen["cache_len"],
+               fed=[t for t, _ in seen["steps"][:PROFILED_STEPS]], line=line)
+    return launches, run
 
-        lines = []
-        with patched(M.LM, prefill=spy_prefill, decode_step=spy_decode), \
-                patched(MM, slots=spy_slots):
-            torch.cuda.reset_peak_memory_stats()
-            for c in counters.values():
-                c.reset()
-            t0 = time.perf_counter()
-            seqs = srv.serve(arch, B, S, gen, reduced=False, seed=0,
-                             log=lines.append)
-            wall = time.perf_counter() - t0
-            launches = counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        m = re.search(r"in ([\d.]+)ms; decoded (\d+) steps in ([\d.]+)ms "
-                      r"\(([\d.]+) tok/s\)", lines[-1])
-        check(m is not None, f"serve's log line: {lines}")
-        want = {n: 0 for n in counters}
-        want["flash_attention"] = n_attn
-        check(seen["prefill_launches"] == want,
-              f"{arch} prefill launches {seen['prefill_launches']}")
-        check(launches == want, f"{arch}: decode launched kernels: "
-              f"{launches} after the prefill's {seen['prefill_launches']}")
-        check(seqs.shape == (B, gen), f"{arch} served {seqs.shape}")
-        check(len(seen["steps"]) == gen - 1, f"{arch}: decode steps missing")
-        check(bool(torch.isfinite(seen["logits"]).all())
-              and all(bool(f) for _, f in seen["steps"]),
-              f"{arch}: non-finite logits")
-        moe_layers = cfg.n_layers - cfg.first_dense_layers
-        dropped = sum(int(d) for d, _ in seen["drops"])
-        pairs = sum(n for _, n in seen["drops"])
-        check(len(seen["drops"]) == moe_layers
-              and pairs == moe_layers * B * S * cfg.top_k,
-              f"{arch}: {len(seen['drops'])} dispatches of {pairs} pairs")
-        for n in total:
-            total[n] += launches[n]
-        params = seen["params"]
-        served[arch] = dict(
-            params=params, tokens=seen["tokens"],
-            cache_len=seen["cache_len"],
-            fed=[t for t, _ in seen["steps"][:PROFILED_STEPS]],
-            line=dict(
-                arch=arch, batch=B, prompt_len=S, gen=gen, reduced=False,
-                wall_s=wall, prefill_ms=float(m.group(1)),
-                decode_ms=float(m.group(3)),
-                decode_tok_s=float(m.group(4)),
-                decode_steps=int(m.group(2)),
-                resident_before_gb=resident_gb, peak_memory_gb=peak_gb,
-                init_peak_memory_gb=seen["init_peak_gb"],
-                params=sum(t.numel() for t in M.tensors(params)),
-                param_gb=sum(t.numel() * t.element_size()
-                             for t in M.tensors(params)) / 1e9,
-                prefill_launches=seen["prefill_launches"],
-                launches=launches, capacity=MM.capacity(cfg, S),
-                dropped_pairs=dropped, pairs=pairs,
-                dropped_share=dropped / pairs,
-                first_tokens=seqs[:, :8].tolist()))
-        del seen, params
+
+def profile_served(phase: str, served: dict) -> None:
+    """Emit each run of ``serve_spied`` (``phase``) and trace one more
+    prefill and ``PROFILED_STEPS`` decode steps of it under
+    torch.profiler (``phase``_profile), after every serve run of the
+    phase: a trace can slow later host-bound decode.  Frees each run."""
+    from repro_torch.models import model as M
     for arch, run in served.items():
-        model = M.LM(get_config(arch))
+        model = M.LM(run["cfg"])
         kept = {}
 
         def profiled_prefill():
             with torch.inference_mode():
-                kept["c"], _ = model.prefill(run["params"],
-                                             {"tokens": run["tokens"]},
+                kept["c"], _ = model.prefill(run["params"], run["batch"],
                                              run["cache_len"])
 
         def profiled_decode():
@@ -2615,16 +2668,356 @@ def phase_moe_serve():
                 for tok in run["fed"]:
                     _, cache = model.decode_step(run["params"], cache, tok)
 
-        emit("moe_serve", **run["line"])
+        emit(phase, **run["line"])
         for part, fn in (("prefill", profiled_prefill),
                          (f"decode_{PROFILED_STEPS}_steps", profiled_decode)):
-            emit("moe_serve_profile", arch=arch, part=part,
+            emit(f"{phase}_profile", arch=arch, part=part,
                  **device_profile(fn))
         del model, kept
         run.clear()
-        free_card(f"moe_serve {arch} profiled")
+        free_card(f"{phase} {arch} profiled")
+
+
+# ------------------------------------------------------------ phase 5b
+MOE_SERVE = dict(batch=4, prompt_len=3000, gen=64)
+#: arch -> (its attention layers, each one ``flash_attention`` launch a
+#: prefill; the depth of the float32 hold: deepseek-v2-lite's dense layer
+#: and two MoE layers, granite-moe's first two layers; a float32 copy at
+#: full depth would be ~63 GB for deepseek)
+MOE_ARCHS = {"granite-moe-3b-a800m": (32, 2), "deepseek-v2-lite-16b": (27, 3)}
+#: The hold keeps phase 5's LAYER_FACTOR and LOGITS_FACTOR.  bf16 routing
+#: flips a share of the router's choices (near top-k ties) against the
+#: float32 model, and a few between the kernel and plain bf16 paths; the
+#: H100's first run put the kernel path within 1.022x of the plain path's
+#: distance at every layer (0.06-0.9% of choices flipped between the two)
+#: and its logits within 1.44x, so the factors stand for the MoE family.
+
+
+def moe_hold(arch: str, depth: int) -> dict:
+    """5b's hold (``hold_paths``) at full width and depth ``depth``, the
+    weights drawn in float32: every attention and MoE layer of the
+    prefill spied, the share of (token, choice) pairs whose expert
+    differs from the float32 model's reported, and planted faults (a
+    capacity of 1, every choice shifted one expert on, MLA at the padded
+    head's default scale) failing the layer limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MM
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    B, S = MOE_SERVE["batch"], MOE_SERVE["prompt_len"]
+    p32 = M.LM(cfg).init(seed=1, device=dev, dtype=torch.float32)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)), device=dev)}
+    #: the router's choices (B,S,k) a layer, one list a run of the hold:
+    #: the kernel path, float32, the plain bf16 path, then the faults
+    choices = []
+
+    def spies(keep):
+        run_choices = []
+        choices.append(run_choices)
+        moe, router = MM.moe_forward, MM._router
+
+        def spy_moe(p, x, c_):
+            y, aux = moe(p, x, c_)
+            if x.shape[1] > 1:
+                keep(y)
+            return y, aux
+
+        def spy_router(p, x, c_):
+            w, idx, aux = router(p, x, c_)
+            if x.shape[1] > 1:
+                run_choices.append(idx)
+            return w, idx, aux
+
+        return [spy_attention(keep),
+                (MM, dict(moe_forward=spy_moe, _router=spy_router))]
+
+    def flipped(a, b):
+        """Share of (token, choice) pairs of ``a`` whose expert is not
+        among ``b``'s choices for that token."""
+        na = F.one_hot(a, cfg.n_experts).sum(-2)
+        nb = F.one_hot(b, cfg.n_experts).sum(-2)
+        return float((na - nb).clamp(min=0).sum()) / a.numel()
+
+    fa, router = ops.flash_attention, MM._router
+
+    def shifted(p, x, c_):
+        w, idx, aux = router(p, x, c_)
+        return w, (idx + 1) % cfg.n_experts, aux
+
+    faults = {"capacity_1": (cfg, None, [(MM, dict(
+                  capacity=lambda c_, seq: 1))]),
+              "experts_shifted_by_one": (cfg, None, [(MM, dict(
+                  _router=shifted))])}
+    if cfg.mla:
+        faults["mla_default_scale"] = (cfg, None, [(ops, dict(
+            flash_attention=lambda q, k, v, **kw: fa(
+                q, k, v, **dict(kw, scale=None))))])
+    # every layer's attention, then its MoE FFN (a dense MLP is not spied)
+    kinds = [kind for i in range(depth) for kind in
+             (("attn",) if i < cfg.first_dense_layers else ("attn", "moe"))]
+    out = hold_paths(arch, cfg, p32, batch, kinds, depth, spies, faults,
+                     ref.flash_attention_ref)
+    kernel_idx, idx32, plain_idx = choices[:3]
+    out.update(
+        flipped_share_kernel_vs_f32=[flipped(a, b) for a, b in
+                                     zip(kernel_idx, idx32)],
+        flipped_share_plain_vs_f32=[flipped(a, b) for a, b in
+                                    zip(plain_idx, idx32)],
+        flipped_share_kernel_vs_plain=[flipped(a, b) for a, b in
+                                       zip(kernel_idx, plain_idx)])
+    del p32, batch, choices
+    free_card(f"moe_hold {arch}")
+    return out
+
+
+def phase_moe_serve():
+    """5b: ``serve`` of the MoE family at full width and full depth
+    (``serve_spied``), also spied at ``moe.slots`` (pairs dropped by
+    capacity); once both have served, ``profile_served``, then
+    ``moe_hold`` at reduced depth.  -> the LM kernels' launches summed
+    over both serve runs (counters zeroed just before each)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MM
+    total = {n: 0 for n in lm_counters()}
+    B, S, gen = (MOE_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    served = {}
+    for arch, (n_attn, _) in MOE_ARCHS.items():
+        cfg = get_config(arch)
+        drops = []
+        slots = MM.slots
+
+        def spy_slots(idx, n_experts, cap):
+            dest = slots(idx, n_experts, cap)
+            drops.append(((dest == n_experts * cap).sum(), dest.numel()))
+            return dest
+
+        launches, run = serve_spied(arch, cfg, B, S, gen, n_attn,
+                                    [(MM, dict(slots=spy_slots))])
+        moe_layers = cfg.n_layers - cfg.first_dense_layers
+        dropped = sum(int(d) for d, _ in drops)
+        pairs = sum(n for _, n in drops)
+        check(len(drops) == moe_layers
+              and pairs == moe_layers * B * S * cfg.top_k,
+              f"{arch}: {len(drops)} dispatches of {pairs} pairs")
+        run["line"].update(capacity=MM.capacity(cfg, S),
+                           dropped_pairs=dropped, pairs=pairs,
+                           dropped_share=dropped / pairs)
+        for n in total:
+            total[n] += launches[n]
+        served[arch] = run
+    profile_served("moe_serve", served)
     for arch, (_, depth) in MOE_ARCHS.items():
         emit("moe_hold", arch=arch, **moe_hold(arch, depth))
+    return total
+
+
+# ------------------------------------------------------------ phase 4c
+#: (name, B, Sq, Skv, H, K, D, causal) of the encoder-decoder family's and
+#: the parallel block's prefill attention, bf16, at their serve shapes:
+#: whisper-medium's encoder (1536 frames, non-causal), its decoder's
+#: cross-attention (384 queries over the 1536 encoder positions) and
+#: self-attention (384, causal), all 16 heads of 64; command-r-plus-104b's
+#: GQA, 96 query heads over 8 KV heads of 128, prompt 3000
+ENCDEC_FLASH_CASES = (
+    ("whisper_encoder", 4, 1536, 1536, 16, 16, 64, False),
+    ("whisper_cross", 4, 384, 1536, 16, 16, 64, False),
+    ("whisper_decoder", 4, 384, 384, 16, 16, 64, True),
+    ("command_r", 4, 3000, 3000, 96, 8, 128, True),
+)
+
+
+def plain_by_batch(q, k, v, **kw):
+    """``ref.flash_attention_ref`` one batch row at a time: the same
+    function with a batch's share of its dense float32 scores in memory
+    (command-r's are 13.8 GB a call at batch 4)."""
+    from repro_torch.kernels import ref
+    return torch.cat([ref.flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                              v[i:i + 1], **kw)
+                      for i in range(q.shape[0])])
+
+
+def phase_encdec_kernels():
+    """4c: ``flash_attention`` at the four layouts of
+    ``ENCDEC_FLASH_CASES``, held element by element to the float32 oracle
+    on the same inputs (``FLASH_TOL``), a planted fault failing that
+    limit (a non-causal layout made causal, whisper's causal decoder made
+    non-causal, command-r's K and V heads shifted by one); timed beside
+    the plain version, SDPA (the first backend that takes the layout) and
+    the bound (4·D operations a visible pair a head; q, k, v and o once)
+    -> {layout: its kernel, plain, SDPA and bound times and its error}."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    layouts = {}
+    for name, B, Sq, Skv, H, K, D, causal in ENCDEC_FLASH_CASES:
+        free_card(f"flash_case {name}")
+        gen.manual_seed(Sq + Skv + H)
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, Skv, K, D), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        out = kfa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        # the plain version is float32 inside: on bf16 inputs it is the
+        # float32 oracle rounded once
+        ref32 = plain_by_batch(q.float(), k.float(), v.float(),
+                               causal=causal)
+        abs_err = float((out.float() - ref32.to(torch.bfloat16).float())
+                        .abs().max())
+        excess = flash_excess(out, ref32, "bfloat16")
+        check(math.isfinite(excess) and excess <= 1.0,
+              f"flash_attention {name}: {excess} x its element-wise limit")
+        if K < H:
+            fault = "kv_heads_shifted"
+            bad = plain_by_batch(q, k.roll(1, dims=2), v.roll(1, dims=2),
+                                 causal=causal)
+        else:
+            fault = "made_noncausal" if causal else "made_causal"
+            bad = plain_by_batch(q, k, v, causal=not causal)
+        planted = {fault: flash_excess(bad, ref32, "bfloat16")}
+        check(planted[fault] > 1.0,
+              f"planted fault {fault} passes: {planted[fault]}")
+        del bad
+        scale = 1.0 / math.sqrt(D)
+        backend, sdpa, lib_out = sdpa_backends(q, k, v, scale, causal)
+        lib_ms = lib_err = None
+        if backend is not None:
+            lib_err = rel_err(lib_out.float(), ref32)
+            check(lib_err <= SDPA_LIMIT["bfloat16"],
+                  f"sdpa {name} ({backend}) disagrees: {lib_err}")
+            lib_ms = time_ms(sdpa)
+        del lib_out, ref32
+        ms = time_ms(lambda: kfa.flash_attention(q, k, v, causal=causal))
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                           causal=causal))
+        flops = 4 * B * H * D * visible_pairs(Sq, Skv, causal, 0)
+        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        emit("flash_case", case=name, B=B, Sq=Sq, Skv=Skv, H=H, K=K, D=D,
+             causal=causal, window=0, softcap=0.0, dtype="bfloat16",
+             tol=FLASH_TOL["bfloat16"], excess=excess,
+             planted_excess=planted, max_abs_err=abs_err, ms=ms,
+             plain_ms=plain_ms, sdpa_ms=lib_ms, sdpa_backend=backend,
+             sdpa_rel_err=lib_err, bound_ms=bound, bound_by=by,
+             gflop=flops / 1e9, mbytes=nbytes / 1e6)
+        layouts[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del q, k, v, out
+    free_card("after phase 4c")
+    return layouts
+
+
+# ------------------------------------------------------------ phase 5c
+ENCDEC_SERVE = dict(batch=4, gen=64)
+#: arch -> (prompt length, layers served (None: all), flash_attention
+#: launches a prefill, the depth of the float32 hold).  whisper-medium:
+#: 384 prompt tokens + 64 generated = 448, its decoder's context, over
+#: 1536 stub frames; 24 encoder, 24 self- and 24 cross-attention layers,
+#: held at full depth (a float32 copy is 3 GB).  command-r-plus-104b: its
+#: published widths at 8 of its 64 layers (all 64 in bf16 would be ~208
+#: GB; 8 are ~31.5 GB with the tied 6.3 GB table), held at depth 2 (~25
+#: GB in float32)
+ENCDEC_ARCHS = {"whisper-medium": (384, None, 72, 24),
+                "command-r-plus-104b": (3000, 8, 8, 2)}
+
+
+def encdec_config(arch: str, layers):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def encdec_hold(arch: str, depth: int, prompt_len: int) -> dict:
+    """5c's hold (``hold_paths``) at full width and depth ``depth``
+    (whisper's decoder depth; its encoder keeps its 24 layers), the
+    weights drawn in float32, the plain attention one batch row at a time
+    (``plain_by_batch``): every attention output of the prefill spied
+    (the encoder's, the decoder's self- and cross-attention's,
+    command-r's), and planted faults failing the layer limit: for whisper
+    the encoder run causal, cross-attention fed the decoder's own hidden
+    state for keys and values, sinusoidal positions shifted by one; for
+    command-r the layers run as sequential blocks (attention, then the
+    FFN on the norm of its sum with the input, through ln1's weights)."""
+    from repro_torch.models import attention as MA
+    from repro_torch.models import model as M
+
+    dev = torch.device("cuda", 0)
+    cfg = encdec_config(arch, depth)
+    B = ENCDEC_SERVE["batch"]
+    p32 = M.LM(cfg).init(seed=1, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (B, prompt_len)), device=dev)}
+    attn, sincos = MA.attn_forward, M._sincos
+
+    def encoder_causal(*a, **kw):
+        if kw.get("causal") is False:
+            kw["causal"] = True
+        return attn(*a, **kw)
+
+    def cross_own_kv(p, x, *a, **kw):
+        if kw.get("kv_source") is not None:
+            kw["kv_source"] = x
+        return attn(p, x, *a, **kw)
+
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(0, 1, (B, cfg.encoder_seq, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+        kinds = ["encoder"] * cfg.encoder_layers + ["self", "cross"] * depth
+        faults = {
+            "encoder_causal": (cfg, None, [(MA, dict(
+                attn_forward=encoder_causal))]),
+            "cross_fed_own_kv": (cfg, None, [(MA, dict(
+                attn_forward=cross_own_kv))]),
+            "sincos_shifted_by_one": (cfg, None, [(M, dict(
+                _sincos=lambda pos, d, dt: sincos(pos + 1, d, dt)))])}
+    else:
+        kinds = ["attn"] * depth
+        faults = {"sequential_block": (
+            dataclasses.replace(cfg, parallel_block=False),
+            lambda p16: dict(p16, layers=[dict(lp, ln2=lp["ln1"])
+                                          for lp in p16["layers"]]), [])}
+    out = hold_paths(arch, cfg, p32, batch, kinds, len(kinds),
+                     lambda keep: [spy_attention(keep)], faults,
+                     plain_by_batch)
+    out["encoder_layers"] = cfg.encoder_layers
+    del p32, batch
+    free_card(f"encdec_hold {arch}")
+    return out
+
+
+def phase_encdec_serve():
+    """5c: ``serve`` of whisper-medium (full depth) and
+    command-r-plus-104b (full width, ``ENCDEC_ARCHS``' cut of its depth,
+    printed) through ``serve_spied``, batch 4, 64 tokens; once both have
+    served, ``profile_served``, then ``encdec_hold``.  -> the LM kernels'
+    launches summed over both serve runs (counters zeroed just before
+    each)."""
+    total = {n: 0 for n in lm_counters()}
+    B, gen = ENCDEC_SERVE["batch"], ENCDEC_SERVE["gen"]
+    served = {}
+    for arch, (S, layers, n_attn, _) in ENCDEC_ARCHS.items():
+        cfg = encdec_config(arch, layers)
+        published = encdec_config(arch, None).n_layers
+        if layers is not None:
+            print(f"chip_smoke: {arch} served at {layers} of its "
+                  f"{published} layers (full width)", flush=True)
+        launches, run = serve_spied(arch, cfg, B, S, gen, n_attn)
+        run["line"]["published_layers"] = published
+        for n in total:
+            total[n] += launches[n]
+        served[arch] = run
+    profile_served("encdec_serve", served)
+    for arch, (S, _, _, depth) in ENCDEC_ARCHS.items():
+        emit("encdec_hold", arch=arch, **encdec_hold(arch, depth, S))
     return total
 
 
@@ -2986,6 +3379,9 @@ BWD_CASES = (
     ("d128_window_f32", 1, 1000, 8, 2, 128, True, 256, 0.0, "float32"),
     ("noncausal_d16_f32", 2, 300, 4, 4, 16, False, 0, 0.0, "float32"),
     ("mla_scaled", 1, 1000, 16, 16, 256, True, 0, 0.0, "bfloat16"),
+    # D 32, zero-padded to 64 by the wrapper (phase 4's gqa_ragged_d32)
+    ("gqa_ragged_d32", 2, 70, 8, 2, 32, True, 0, 0.0, "bfloat16"),
+    ("gqa_ragged_d32_f32", 2, 70, 8, 2, 32, True, 0, 0.0, "float32"),
 )
 #: cases of BWD_CASES run with a scale of their own: MLA's 1/sqrt(192) on
 #: heads padded to 256 (the kernel's default would be 1/16)
@@ -3099,10 +3495,18 @@ def free_card(where: str) -> float:
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     allocated = torch.cuda.memory_allocated() / 1e9
+    reserved = torch.cuda.memory_reserved() / 1e9
     emit("card_memory", at=where, allocated_gb=allocated,
-         reserved_gb=torch.cuda.memory_reserved() / 1e9,
-         free_gb=free / 1e9, total_gb=total / 1e9)
+         reserved_gb=reserved, free_gb=free / 1e9, total_gb=total / 1e9,
+         outside_gb=outside_gb())
     return allocated
+
+
+def outside_gb() -> float:
+    """GB of the card in use but not reserved by PyTorch's allocator: the
+    CUDA context, library handles and workspaces, other processes."""
+    free, total = torch.cuda.mem_get_info()
+    return (total - free - torch.cuda.memory_reserved()) / 1e9
 
 
 def phase_train_kernels():
@@ -3485,6 +3889,12 @@ def main() -> int:
         phase_moe_serve()
         print(card_line())
         return 0
+    if sys.argv[1:] == ["--encdec"]:
+        phase_card()
+        phase_encdec_kernels()
+        phase_encdec_serve()
+        print(card_line())
+        return 0
     if sys.argv[1:] == ["--train"]:
         phase_card()
         phase_train_kernels()
@@ -3499,8 +3909,10 @@ def main() -> int:
         return 2
     card = phase_card()
     # phase 8 first: the population needs ~65 GB of an 80 GB card, and
-    # the later phases leave ~12 GB of it held outside PyTorch's
-    # allocator (card_memory lines) and the allocator fragmented
+    # the later phases leave ~10-12 GB of it held outside PyTorch's
+    # allocator (a cuBLAS and a cuSOLVER handle for each thread that ran
+    # the GP on the card at once: phase_thread_memory, card_memory
+    # lines) and the allocator fragmented
     summary = phase_train_kernels()
     train = phase_train()
     phase_train_parity()
@@ -3509,6 +3921,7 @@ def main() -> int:
     summary.update(phase_kernels())
     phase_gp_parity()
     phase_gp_host()
+    phase_thread_memory()
     launches = phase_service()
     free_card("after phase 3")
     phase_cnn()
@@ -3524,6 +3937,9 @@ def main() -> int:
     free_card("after phase 5")
     moe = phase_moe_serve()
     free_card("after phase 5b")
+    layouts = phase_encdec_kernels()
+    encdec = phase_encdec_serve()
+    free_card("after phase 5c")
     summary.update(phase_quant_kernels())
     launches.update(phase_compress())
     free_card("after phase 6b")
@@ -3543,7 +3959,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:97",
              launches=launches["flash_attention"],
-             **summary["flash_attention"]),
+             **summary["flash_attention"], layouts=layouts),
         dict(name="rglru_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:40",
@@ -3572,6 +3988,7 @@ def main() -> int:
         k["train_launches"] = train.get(k["name"], 0)
         k["population_launches"] = population.get(k["name"], 0)
         k["moe_serve_launches"] = moe.get(k["name"], 0)
+        k["encdec_serve_launches"] = encdec.get(k["name"], 0)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

@@ -9,7 +9,10 @@ window, an optional tanh softcap, the scores scaled by ``scale`` (1/√D
 by default; a caller that zero-pads its heads to one of ``HEAD_DIMS``
 passes its own), float32 inside and out in q's dtype; with ``return_lse``
 it also returns the float32 row log-sum-exp (B,H,Sq) that the backward
-recomputes the probabilities from.  ``flash_attention_bwd(q, k, v, o,
+recomputes the probabilities from.  Every head dim up to 256 runs: one
+between the instantiated ``HEAD_DIMS`` is zero-padded to the next of them
+(``kernel_head_dim``) at the scale of its true width, and the outputs are
+cut back (``padded_forward``, ``padded_backward``); a wider one raises.  ``flash_attention_bwd(q, k, v, o,
 lse, do, ...)`` is its gradient -> (dq, dk, dv) in the inputs' dtype.
 For tensors on the CPU each takes its plain version
 (``ref.flash_attention_ref``, ``ref.flash_attention_bwd_ref``); for CUDA
@@ -32,6 +35,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._launch import I, P, LaunchCounter, _check, _fn, \
@@ -57,13 +61,52 @@ def _check_call(name, q, k, window):
     Skv, K = k.shape[1], k.shape[2]
     if K == 0 or H % K:
         raise ValueError(f"{name}: {K} kv heads do not divide {H}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
+    kernel_head_dim(D, name)
     if q.dtype not in DTYPES:
         raise TypeError(f"{name}: dtype {q.dtype} not in {tuple(DTYPES)}")
     if window < 0:
         raise ValueError(f"{name}: window {window} < 0")
     return B, Sq, H, D, Skv, K
+
+
+def kernel_head_dim(D: int, name: str = "flash_attention") -> int:
+    """The instantiated head dim a head of width D runs at: the smallest
+    of ``HEAD_DIMS`` that holds it."""
+    for width in HEAD_DIMS:
+        if width >= D:
+            return width
+    raise ValueError(f"{name}: head dim {D} is wider than {HEAD_DIMS[-1]}, "
+                     f"the widest of the kernels' {HEAD_DIMS}")
+
+
+def _pad_heads(Dp: int, *ts: torch.Tensor):
+    return [F.pad(t, (0, Dp - t.shape[-1])) for t in ts]
+
+
+def padded_forward(fwd, q, k, v, Dp: int, *, scale=None,
+                   return_lse: bool = False, **kw):
+    """``fwd`` (the forward wrapper, or its plain version) at head dim Dp
+    on q, k, v zero-padded to it: zero columns add nothing to q·k, the
+    scale stays the true width's (1/√D for None), and o's padded columns,
+    zero, are cut off."""
+    D = q.shape[-1]
+    out = fwd(*_pad_heads(Dp, q, k, v), scale=_scale(scale, D),
+              return_lse=return_lse, **kw)
+    if return_lse:
+        return out[0][..., :D], out[1]
+    return out[..., :D]
+
+
+def padded_backward(bwd, q, k, v, o, lse, do, Dp: int, *, scale=None,
+                    **kw):
+    """``bwd`` (the backward wrapper, or its plain version) at head dim Dp
+    on inputs zero-padded to it, as ``padded_forward`` ran the forward
+    (o's padded columns are the zeros it cut off) -> (dq, dk, dv) cut
+    back to the true width: their padded columns are zero."""
+    D = q.shape[-1]
+    dq, dk, dv = bwd(*_pad_heads(Dp, q, k, v, o), lse, *_pad_heads(Dp, do),
+                     scale=_scale(scale, D), **kw)
+    return dq[..., :D], dk[..., :D], dv[..., :D]
 
 
 def _scale(scale, D: int) -> float:
@@ -87,6 +130,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        softcap=softcap, scale=scale,
                                        return_lse=return_lse)
     B, Sq, H, D, Skv, K = _check_call("flash_attention", q, k, window)
+    Dp = kernel_head_dim(D)
+    if Dp != D:
+        return padded_forward(flash_attention, q, k, v, Dp, causal=causal,
+                              window=window, softcap=softcap, scale=scale,
+                              return_lse=return_lse)
     scale = _scale(scale, D)
     dev = q.device
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -124,6 +172,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                                            causal=causal, window=window,
                                            softcap=softcap, scale=scale)
     B, Sq, H, D, Skv, K = _check_call("flash_attention_bwd", q, k, window)
+    Dp = kernel_head_dim(D)
+    if Dp != D:
+        return padded_backward(flash_attention_bwd, q, k, v, o, lse, do, Dp,
+                               causal=causal, window=window, softcap=softcap,
+                               scale=scale)
     scale = _scale(scale, D)
     dev, dt = q.device, q.dtype
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))

@@ -32,7 +32,8 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *,
     ``prompt_len`` tokens -> (batch, gen) int64 numpy array.
 
     Prompts come from ``np.random.default_rng(seed)``, as in the
-    reference.  ``params`` (e.g. from ``models.convert``) are cast to the
+    reference, and for an encoder-decoder the frames (batch,
+    ``encoder_seq``, d) from the same generator right after them.  ``params`` (e.g. from ``models.convert``) are cast to the
     compute dtype and moved to the device; without them the weights are
     drawn from a ``torch.Generator`` seeded with ``seed`` on the device,
     each cast once to the compute dtype."""
@@ -51,11 +52,16 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *,
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=dev)
+    pbatch = {"tokens": prompts}
+    if cfg.family == "encdec":
+        pbatch["frames"] = torch.as_tensor(
+            rng.normal(0, 1, (batch, cfg.encoder_seq, cfg.d_model)),
+            dtype=cfg.compute_dtype, device=dev)
 
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        cache, logits = prefill_step(params, {"tokens": prompts})
+        cache, logits = prefill_step(params, pbatch)
         tok = torch.argmax(logits, dim=-1)
         _sync(dev)
         t_prefill = time.perf_counter() - t0

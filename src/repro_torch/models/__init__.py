@@ -1,4 +1,5 @@
-"""Model substrate of the port: the LM of the dense and hybrid families."""
+"""Model substrate of the port: the LM of the dense (parallel blocks
+too), hybrid, MoE and encoder-decoder families."""
 from repro_torch.models.common import SHAPES, ModelConfig, ShapeSpec
 from repro_torch.models.model import LM
 

@@ -1,34 +1,39 @@
-"""Attention: grouped-query (global and sliding-window) and MLA, for
-training, prefill and decode.
+"""Attention: grouped-query (global and sliding-window), cross-attention
+and MLA, for training, prefill and decode.
 
-The port's copy of the GQA and MLA parts of the reference's
-``models/attention.py``.  Training's and the prefill's self-attention go
-through ``ops.flash_attention`` — the hand-written CUDA kernels forward
-and backward on the card, the dense oracle and its plain gradient on the
-CPU — which computes what the reference's chunked
-``multihead_attention`` computes when positions are ``arange(S)``, as
-they always are there; its scores are float32 inside the kernel
-whatever the compute dtype.  Decode is plain torch, as the reference's is
-XLA: one query against the whole cache, float32 scores.
+The port's copy of the reference's ``models/attention.py``.  Training's
+and the prefill's attention — causal self-attention, the encoder's
+non-causal self-attention and the decoder's cross-attention over the
+encoder output — go through ``ops.flash_attention``: the hand-written
+CUDA kernels forward and backward on the card, the dense oracle and its
+plain gradient on the CPU.  It computes what the reference's chunked
+``multihead_attention`` computes when query and key positions are
+``arange(Sq)`` and ``arange(Skv)``, as they always are there (the
+encoder's frames and a prompt both count from 0; cross-attention masks
+nothing); its scores are float32 inside the kernel whatever the compute
+dtype.  Decode is plain torch, as the reference's is XLA: one query
+against the whole cache (against every encoder position for
+cross-attention), float32 scores.
 
 MLA (DeepSeek): prefill and training use the expanded form, whose query
 and key heads (``qk_nope_dim + qk_rope_dim`` wide) and value heads
 (``v_head_dim``) the kernel takes zero-padded to one of its head dims,
 with the scale of the unpadded width (zero columns add nothing to a dot
 product); decode uses the absorbed form, whose cache is the compressed
-latent (``kv_lora_rank`` + ``qk_rope_dim`` floats a token).
-Cross-attention is not ported yet (ROADMAP.md §1).
+latent (``kv_lora_rank`` + ``qk_rope_dim`` floats a token).  A
+cross-attention layer is plain GQA whatever ``cfg.mla`` says, as in the
+reference.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.kernels.flash_attention import kernel_head_dim
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig
 
@@ -40,8 +45,11 @@ NEG_INF = -2.0 ** 30  # safe for f32/bf16 masks (avoid actual -inf NaN paths)
 # ==========================================================================
 # parameter init
 # ==========================================================================
-def init_attention(init: L.Init, cfg: ModelConfig) -> Params:
-    if cfg.mla:
+def init_attention(init: L.Init, cfg: ModelConfig, *,
+                   cross: bool = False) -> Params:
+    """Projections of one attention layer; ``cross`` (an encoder-decoder
+    layer's cross-attention) is plain GQA even in an MLA config."""
+    if cfg.mla and not cross:
         return _init_mla(init, cfg)
     hd = cfg.hd
     return {
@@ -74,24 +82,29 @@ def dense3(p: Params, x: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
 
 
 def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, *, window: int = 0,
+                 cfg: ModelConfig, *, causal: bool = True, window: int = 0,
+                 kv_source: Optional[torch.Tensor] = None,
                  return_kv: bool = False):
-    """Causal self-attention over a whole sequence (training / prefill).
-    x: (B,S,d); positions: (S,) = arange(S), which is what the kernel
-    assumes (its query and key positions count from 0).  Returns y, and
-    with ``return_kv`` (y, {"k", "v"}), the keys and values the decode
-    cache is built from ({"ckv", "kr"} for MLA)."""
-    if cfg.mla:
+    """Attention over a whole sequence (training / prefill).  x: (B,S,d);
+    positions: (S,) = arange(S), which is what the kernel assumes (its
+    query and key positions count from 0).  ``causal=False`` is the
+    encoder's self-attention.  ``kv_source`` (B,Skv,d), the encoder
+    output, makes it cross-attention: keys and values projected from it
+    with no RoPE, never causal.  Returns y, and with ``return_kv`` (y,
+    {"k", "v"}), the keys and values the decode cache is built from
+    ({"ckv", "kr"} for MLA)."""
+    if cfg.mla and kv_source is None:
         return _mla_forward(p, x, positions, cfg, return_kv=return_kv)
     hd = cfg.hd
+    src = x if kv_source is None else kv_source
     q = dense3(p["wq"], x, cfg.n_heads, hd)
-    k = dense3(p["wk"], x, cfg.n_kv_heads, hd)
-    v = dense3(p["wv"], x, cfg.n_kv_heads, hd)
-    if cfg.pos_kind == "rope":
+    k = dense3(p["wk"], src, cfg.n_kv_heads, hd)
+    v = dense3(p["wv"], src, cfg.n_kv_heads, hd)
+    if kv_source is None and cfg.pos_kind == "rope":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=True, window=window,
-                              softcap=cfg.attn_softcap)
+    out = ops.flash_attention(q, k, v, causal=causal and kv_source is None,
+                              window=window, softcap=cfg.attn_softcap)
     y = L.dense(p["wo"], out.reshape(*x.shape[:-1], -1))
     if return_kv:
         return y, {"k": k, "v": v}
@@ -173,6 +186,21 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     return y, {"k": k, "v": v}
 
 
+def cross_decode(p: Params, x: torch.Tensor, ck: torch.Tensor,
+                 cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One decode step's cross-attention: x (B,1,d) against the encoder's
+    keys and values ck, cv (B,S_enc,K,D) from the cache, every encoder
+    position visible (the reference's query position 1 << 30) -> (B,1,d).
+    The cache is read, never written."""
+    B, S_enc = x.shape[0], ck.shape[1]
+    q = dense3(p["wq"], x, cfg.n_heads, cfg.hd)[:, 0]
+    kv_pos = torch.arange(S_enc, device=x.device).expand(B, S_enc)
+    out = decode_attend(q, ck, cv, torch.full((B,), 1 << 30,
+                                              device=x.device),
+                        kv_pos, scale=1.0 / math.sqrt(cfg.hd)).to(x.dtype)
+    return L.dense(p["wo"], out.reshape(B, -1))[:, None]
+
+
 def _cache_insert(buf: torch.Tensor, new: torch.Tensor,
                   slot: torch.Tensor) -> torch.Tensor:
     """Write per-batch row ``new`` at per-batch index ``slot``, in place."""
@@ -205,8 +233,8 @@ def _mla_qkr(p, x, positions, cfg):
 def padded_head_dim(cfg: ModelConfig) -> int:
     """The kernel's head dim that MLA's query/key and value heads are
     zero-padded to: the smallest of ``HEAD_DIMS`` that holds both."""
-    width = max(cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
-    return next(d for d in HEAD_DIMS if d >= width)
+    return kernel_head_dim(max(cfg.qk_nope_dim + cfg.qk_rope_dim,
+                               cfg.v_head_dim))
 
 
 def _mla_forward(p, x, positions, cfg, *, return_kv=False):

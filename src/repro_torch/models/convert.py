@@ -6,8 +6,11 @@
 dicts, with each layer group's leading ``repeats`` dim unstacked into the
 port's flat list of layers.  Dense weights stay (d_in, d_out), the layout
 the port's ``layers.dense`` applies as ``x @ w``, so no weight is
-transposed.  With it the two packages compute the same function on the
-same weights, which is how the tests hold one against the other.
+transposed.  An encoder-decoder's encoder layers, stacked by the
+reference with a leading ``encoder_layers`` dim, become the list
+``params["encoder"]["layers"]`` beside the encoder's ``norm``.  With it
+the two packages compute the same function on the same weights, which is
+how the tests hold one against the other.
 
 ``train_state_from_reference(cfg, state, device)`` carries a training
 state across: the reference's ``{"params", "opt": {"m", "v", "step"}}``
@@ -53,8 +56,7 @@ def unstack_groups(cfg: ModelConfig, groups: List[Dict[str, Any]],
                          f"config has {len(specs)}")
     layers = []
     for (pattern, repeats), group in zip(specs, groups):
-        for r in range(repeats):
-            idx = (slice(None), r) if population else r
+        for idx in _stacked(repeats, population):
             for j in range(len(pattern)):
                 layers.append(tree_map(lambda a, i=idx: a[i], group[str(j)]))
     return layers
@@ -68,10 +70,22 @@ def params_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
     kept when ``population``)."""
     conv = lambda a: _tensor(a, device)  # noqa: E731
     params = {name: tree_map(conv, sub) for name, sub in tree.items()
-              if name != "groups"}
+              if name not in ("groups", "encoder")}
     params["layers"] = [tree_map(conv, layer) for layer in
                         unstack_groups(cfg, tree["groups"], population)]
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "layers": [tree_map(lambda a, i=i: conv(a[i]), enc["layers"])
+                       for i in _stacked(cfg.encoder_layers, population)],
+            "norm": tree_map(conv, enc["norm"])}
     return params
+
+
+def _stacked(n: int, population: bool):
+    """Indices of the n entries of a stacked dim: the first, or with
+    ``population`` the second."""
+    return [(slice(None), r) if population else r for r in range(n)]
 
 
 def train_state_from_reference(cfg: ModelConfig, state: Dict[str, Any],

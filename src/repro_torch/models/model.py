@@ -1,19 +1,30 @@
-"""The LM of the port, for the dense, hybrid and MoE families.
+"""The LM of the port, for the dense, hybrid, MoE and encoder-decoder
+families.
 
 The port's copy of the reference's ``models/model.py``:
-  dense    decoder-only transformer (GQA attention, MLP)
+  dense    decoder-only transformer (GQA attention, MLP); with
+           ``cfg.parallel_block`` (command-r) one norm feeds attention and
+           the FFN side by side, ``x + att + ffn(h)``
   hybrid   Griffin-style (RG-LRU, RG-LRU, local-attn) stacks
   moe      decoder-only transformer (GQA or MLA attention; MoE FFN after
            ``first_dense_layers`` layers with a dense MLP)
+  encdec   whisper: an encoder of ``encoder_layers`` non-causal attention
+           layers over precomputed (stub) frame embeddings, sinusoidal
+           positions, and a decoder of ``XATTN`` layers (self-attention,
+           cross-attention over the encoder output, MLP) whose decode
+           cache holds the encoder's keys and values (``ck``, ``cv``)
 
 The reference scans homogeneous layer groups (``build_groups``) whose
 parameters carry a leading ``repeats`` dim; eager PyTorch compiles
 nothing, so the port keeps one flat list of layers in stack order
 (``LM.specs``, ``params["layers"]``, ``cache["layers"]``), and
 ``models/convert.py`` unstacks reference weights (and optimizer state)
-into it along the same groups (``model_groups``).  The encoder-decoder,
-VLM and xLSTM families and parallel blocks are not ported yet
-(ROADMAP.md §1): ``LM`` raises ``NotImplementedError`` for them.
+into it along the same groups (``model_groups``); the encoder's layers
+are a list of their own (``params["encoder"]["layers"]``).  The VLM and
+xLSTM families are not ported yet (ROADMAP.md §1): ``LM`` raises
+``NotImplementedError`` for them.  The card serves the encoder-decoder
+family and parallel blocks; their ``forward`` and ``loss`` are held
+against the reference on the CPU only.
 
 API (functions of plain dicts of tensors; ``torch.func`` composes with
 ``forward`` and ``loss`` when ``cfg.remat`` is "none"):
@@ -22,7 +33,8 @@ API (functions of plain dicts of tensors; ``torch.func`` composes with
   forward(params, batch) -> (logits, aux)
   prefill(params, batch, cache_len) -> (cache, last_logits)
   decode_step(params, cache, tokens) -> (logits, cache)
-  init_cache(batch_size, cache_len, device) -> cache
+  init_cache(batch_size, cache_len, device, enc_len=0) -> cache
+  encode(params, frames) -> encoder output        # encdec only
 
 Training rematerializes as ``cfg.remat`` says, one layer at a time (the
 reference checkpoints a scanned group): "full" keeps only each layer's
@@ -56,6 +68,8 @@ from repro_torch.models.common import (ATTN, LOCAL_ATTN, RGLRU,
 
 Params = Dict[str, Any]
 
+XATTN = "xattn"  # whisper decoder layer (self + cross + mlp)
+
 
 class _TiedCast(torch.autograd.Function):
     """A tied table cast to ``dtype`` once, handed out twice (the
@@ -86,7 +100,7 @@ class _TiedCast(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str          # attn | local | rglru
+    kind: str          # attn | local | rglru | xattn
     ffn: str           # mlp | dense_mlp | moe | none
 
 
@@ -95,7 +109,10 @@ def model_groups(cfg: ModelConfig
     """The reference's layer groups (its ``build_groups``): ((pattern of
     layer specs, repeats), ...) in stack order.  An MoE stack is
     ``first_dense_layers`` x (attn, dense_mlp), then (attn, moe) for the
-    rest; any other stack follows ``cfg.layer_groups()``."""
+    rest; an encoder-decoder's decoder is ``n_layers`` x (xattn, mlp); any
+    other stack follows ``cfg.layer_groups()``."""
+    if cfg.family == "encdec":
+        return (((LayerSpec(XATTN, "mlp"),), cfg.n_layers),)
     if cfg.moe:
         out = []
         if cfg.first_dense_layers:
@@ -117,11 +134,9 @@ def build_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
 
 def _check_supported(cfg: ModelConfig) -> None:
     why = None
-    if cfg.family not in ("dense", "hybrid", "moe"):
+    if cfg.family not in ("dense", "hybrid", "moe", "encdec"):
         why = f"the {cfg.family} family"
-    elif cfg.parallel_block:
-        why = "parallel attention+FFN blocks"
-    elif cfg.pos_kind not in ("rope", "none"):
+    elif cfg.pos_kind not in ("rope", "none", "sincos"):
         why = f"{cfg.pos_kind} positions"
     else:
         bad = sorted(set(cfg.pattern) - {ATTN, LOCAL_ATTN, RGLRU})
@@ -130,8 +145,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     if why:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported yet; the port's LM runs the "
-            "dense, hybrid and MoE families, and ROADMAP.md §1 queues the "
-            "rest (parallel blocks, encoder-decoder, VLM, mLSTM/sLSTM)")
+            "dense (parallel blocks too), hybrid, MoE and encoder-decoder "
+            "families, and ROADMAP.md §1 queues the rest (VLM, "
+            "mLSTM/sLSTM)")
 
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
@@ -162,9 +178,13 @@ def _init_layer(init: L.Init, spec: LayerSpec, cfg: ModelConfig) -> Params:
     p: Params = {"ln1": L.init_norm(init, cfg.d_model, cfg)}
     if spec.kind in (ATTN, LOCAL_ATTN):
         p["attn"] = A.init_attention(init, cfg)
+    elif spec.kind == XATTN:
+        p["attn"] = A.init_attention(init, cfg)
+        p["ln_x"] = L.init_norm(init, cfg.d_model, cfg)
+        p["cross"] = A.init_attention(init, cfg, cross=True)
     else:
         p["rglru"] = R.init_rglru_block(init, cfg)
-    if spec.ffn != "none":
+    if spec.ffn != "none" and not cfg.parallel_block:
         p["ln2"] = L.init_norm(init, cfg.d_model, cfg)
     if spec.ffn == "mlp":
         p["ffn"] = L.init_mlp(init, cfg.d_model, cfg.d_ff, cfg)
@@ -186,13 +206,14 @@ def _ffn_apply(spec: LayerSpec, p: Params, x, cfg
 
 
 def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
-               collect_cache: bool = False, cache_len: int = 0):
+               enc=None, collect_cache: bool = False, cache_len: int = 0):
     """Returns (x, the layer's MoE aux loss, its decode-cache entry: {}
-    unless ``collect_cache``)."""
+    unless ``collect_cache``).  ``enc``: the encoder output an ``XATTN``
+    layer cross-attends to."""
     eps = cfg.norm_eps
     h = L.apply_norm(p["ln1"], x, eps)
     entry: Params = {}
-    if spec.kind in (ATTN, LOCAL_ATTN):
+    if spec.kind in (ATTN, LOCAL_ATTN, XATTN):
         window = cfg.window if spec.kind == LOCAL_ATTN else 0
         if collect_cache:
             att, kv = A.attn_forward(p["attn"], h, positions, cfg,
@@ -200,7 +221,20 @@ def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
             entry = _pad_kv(kv, cache_len, window, cfg)
         else:
             att = A.attn_forward(p["attn"], h, positions, cfg, window=window)
+        if cfg.parallel_block:                 # cohere: one norm, parallel
+            ff, aux = _ffn_apply(spec, p, h, cfg)
+            return x + att + ff, aux, entry
         x = x + att
+        if spec.kind == XATTN:
+            hx = L.apply_norm(p["ln_x"], x, eps)
+            if collect_cache:
+                xa, ckv = A.attn_forward(p["cross"], hx, positions, cfg,
+                                         kv_source=enc, return_kv=True)
+                entry["ck"], entry["cv"] = ckv["k"], ckv["v"]
+            else:
+                xa = A.attn_forward(p["cross"], hx, positions, cfg,
+                                    kv_source=enc)
+            x = x + xa
     else:
         if collect_cache:
             y, entry = R.rglru_forward(p["rglru"], h, cfg, return_cache=True)
@@ -251,11 +285,20 @@ def _layer_decode(spec: LayerSpec, p: Params, x, cache: Params, pos, cfg):
     """x: (B,1,d); returns (x, new_cache_entry)."""
     eps = cfg.norm_eps
     h = L.apply_norm(p["ln1"], x, eps)
-    if spec.kind in (ATTN, LOCAL_ATTN):
+    if spec.kind in (ATTN, LOCAL_ATTN, XATTN):
         window = cfg.window if spec.kind == LOCAL_ATTN else 0
-        att, new = A.attn_decode(p["attn"], h, cache, pos, cfg,
+        self_cache = {n: t for n, t in cache.items() if n not in ("ck", "cv")}
+        att, new = A.attn_decode(p["attn"], h, self_cache, pos, cfg,
                                  window=window)
+        if cfg.parallel_block:
+            ff, _ = _ffn_apply(spec, p, h, cfg)
+            return x + att + ff, new
         x = x + att
+        if spec.kind == XATTN:
+            hx = L.apply_norm(p["ln_x"], x, eps)
+            x = x + A.cross_decode(p["cross"], hx, cache["ck"], cache["cv"],
+                                   cfg)
+            new = dict(new, ck=cache["ck"], cv=cache["cv"])
     else:
         y, new = R.rglru_decode(p["rglru"], h, cache, cfg)
         x = x + y
@@ -266,13 +309,45 @@ def _layer_decode(spec: LayerSpec, p: Params, x, cache: Params, pos, cfg):
 
 
 def _init_cache_entry(spec: LayerSpec, cfg: ModelConfig, batch: int,
-                      cache_len: int, device) -> Params:
-    if spec.kind == ATTN:
-        return A.init_cache_attn(cfg, batch, cache_len, device=device)
+                      cache_len: int, device, enc_len: int = 0) -> Params:
+    if spec.kind in (ATTN, XATTN):
+        e = A.init_cache_attn(cfg, batch, cache_len, device=device)
+        if spec.kind == XATTN:
+            e["ck"] = torch.zeros((batch, enc_len, cfg.n_kv_heads, cfg.hd),
+                                  dtype=cfg.compute_dtype, device=device)
+            e["cv"] = torch.zeros_like(e["ck"])
+        return e
     if spec.kind == LOCAL_ATTN:
         return A.init_cache_attn(cfg, batch, cache_len, window=cfg.window,
                                  device=device)
     return R.init_rglru_cache(cfg, batch, device=device)
+
+
+#: an encoder layer: non-causal self-attention and an MLP
+ENCODER_SPEC = LayerSpec(ATTN, "mlp")
+
+
+def _encoder_layer(p: Params, x, positions, cfg):
+    h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
+    x = x + A.attn_forward(p["attn"], h, positions, cfg, causal=False)
+    ff, _ = _ffn_apply(ENCODER_SPEC, p, L.apply_norm(p["ln2"], x,
+                                                     cfg.norm_eps), cfg)
+    return x + ff
+
+
+# ==========================================================================
+# sinusoidal positions (whisper)
+# ==========================================================================
+def _sincos(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """Sinusoidal embeddings (..., d) of integer ``positions``: sines of
+    the first d/2 columns, cosines of the rest, frequencies 10000^(-i /
+    (d/2 - 1)) (the reference's denominator)."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 # ==========================================================================
@@ -303,6 +378,11 @@ class LM:
                                                  cfg.d_model, cfg)
         params["layers"] = [_init_layer(init, spec, cfg)
                             for spec in self.specs]
+        if cfg.family == "encdec":
+            params["encoder"] = {
+                "layers": [_init_layer(init, ENCODER_SPEC, cfg)
+                           for _ in range(cfg.encoder_layers)],
+                "norm": L.init_norm(init, cfg.d_model, cfg)}
         return params
 
     # ------------------------------------------------------------ helpers
@@ -334,10 +414,40 @@ class LM:
         x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
         return L.unembed(table, x, softcap=cfg.logit_softcap)
 
+    def _positions_in(self, x):
+        """arange(S) for x (B,S,d), and x with sinusoidal positions added
+        when the config has them."""
+        positions = torch.arange(x.shape[1], device=x.device)
+        if self.cfg.pos_kind == "sincos":
+            x = x + _sincos(positions, self.cfg.d_model, x.dtype)
+        return x, positions
+
+    def encode(self, params, frames, *, train: bool = False):
+        """The encoder over precomputed (stub) frame embeddings (B,S,d):
+        sinusoidal positions added, ``encoder_layers`` non-causal
+        attention + MLP layers (rematerialized as ``cfg.remat`` says when
+        ``train``), a final norm."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        x = frames.to(cfg.compute_dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = x + _sincos(positions, cfg.d_model, cfg.compute_dtype)
+        step = self._maybe_remat(_encoder_layer) if train else _encoder_layer
+        for lp in enc["layers"]:
+            x = step(lp, x, positions, cfg)
+        return L.apply_norm(enc["norm"], x, cfg.norm_eps)
+
+    def _encoded(self, params, batch, train: bool = False):
+        """The encoder output for an encoder-decoder batch, else None."""
+        if self.cfg.family != "encdec":
+            return None
+        return self.encode(params, batch["frames"], train=train)
+
     # ------------------------------------------------------------ training
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """batch: {"tokens": (B,S)} -> (logits (B,S,V) in the compute
-        dtype, the MoE aux loss summed over layers: 0 without MoE)."""
+        """batch: {"tokens": (B,S)} (and "frames" (B,S_enc,d) for an
+        encoder-decoder) -> (logits (B,S,V) in the compute dtype, the MoE
+        aux loss summed over layers: 0 without MoE)."""
         cfg = self.cfg
         out_table = None
         table = params["embed"]["table"]
@@ -349,15 +459,16 @@ class LM:
             params = dict(params, embed={"table": emb})
             out_table = {"table": out}
         x = self._embed_in(params, batch["tokens"])
-        positions = torch.arange(x.shape[1], device=x.device)
+        enc = self._encoded(params, batch, train=True)
+        x, positions = self._positions_in(x)
 
-        def layer(spec, lp, x):
-            return _layer_fwd(spec, lp, x, positions, self.cfg)[:2]
+        def layer(spec, lp, x, enc):
+            return _layer_fwd(spec, lp, x, positions, self.cfg, enc=enc)[:2]
 
         step = self._maybe_remat(layer)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, lp in zip(self.specs, params["layers"]):
-            x, a = step(spec, lp, x)
+            x, a = step(spec, lp, x, enc)
             aux = aux + a
         return self._unembed(params, x, out_table), aux
 
@@ -372,32 +483,34 @@ class LM:
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int,
-                   device: DeviceLike = None):
-        """Zeroed decode caches on ``device`` (the CUDA card by default)."""
+                   device: DeviceLike = None, enc_len: int = 0):
+        """Zeroed decode caches on ``device`` (the CUDA card by default);
+        an ``XATTN`` layer's holds ``enc_len`` encoder positions."""
         device = resolve(device)
         return {"layers": [_init_cache_entry(spec, self.cfg, batch,
-                                             cache_len, device)
+                                             cache_len, device, enc_len)
                            for spec in self.specs],
                 "pos": torch.zeros((batch,), dtype=torch.long,
                                    device=device)}
 
     def prefill(self, params, batch, cache_len: int):
         """Run the full prompt, build a decode cache sized ``cache_len``.
-        batch: {"tokens": (B,S)} -> (cache, logits of the last position
-        (B,V))."""
+        batch: {"tokens": (B,S)} (and "frames" for an encoder-decoder) ->
+        (cache, logits of the last position (B,V))."""
         tokens = batch["tokens"]
         x = self._embed_in(params, tokens)
-        S = x.shape[1]
-        positions = torch.arange(S, device=x.device)
+        enc = self._encoded(params, batch)
+        x, positions = self._positions_in(x)
         layers: List[Params] = []
         for spec, lp in zip(self.specs, params["layers"]):
             x, _, entry = _layer_fwd(spec, lp, x, positions, self.cfg,
-                                     collect_cache=True, cache_len=cache_len)
+                                     enc=enc, collect_cache=True,
+                                     cache_len=cache_len)
             layers.append(entry)
         logits = self._unembed(params, x[:, -1:])[:, 0]
         cache = {"layers": layers,
-                 "pos": torch.full((tokens.shape[0],), S, dtype=torch.long,
-                                   device=x.device)}
+                 "pos": torch.full((tokens.shape[0],), x.shape[1],
+                                   dtype=torch.long, device=x.device)}
         return cache, logits
 
     def decode_step(self, params, cache, tokens):
@@ -405,6 +518,8 @@ class LM:
         write their new KV row into the cache's own tensors."""
         pos = cache["pos"]
         x = self._embed_in(params, tokens[:, None])
+        if self.cfg.pos_kind == "sincos":
+            x = x + _sincos(pos[:, None], self.cfg.d_model, x.dtype)
         layers: List[Params] = []
         for spec, lp, lc in zip(self.specs, params["layers"],
                                 cache["layers"]):

@@ -219,6 +219,43 @@ def test_ops_force_kernel_needs_a_cuda_tensor(name):
         op(force_kernel=True)
 
 
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_padded_head_dims_match_the_plain_version(name):
+    """What a wrapper does on the card with a head dim between the
+    instantiated ones (``gqa_ragged``'s D 32 runs at 64): q, k, v
+    zero-padded, the true width's scale, o, lse and the gradients cut
+    back.  Here the padded call is the plain version, padded to the next
+    width past D, held to the unpadded plain version (float32, 2e-5)."""
+    case = FLASH_CASES[name]
+    causal, window, softcap = case[6:]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    D = case[5]
+    Dp = kfa.kernel_head_dim(D + 1)
+    _, (q, k, v) = _flash_inputs(case, "f32")
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got_o, got_lse = kfa.padded_forward(ref.flash_attention_ref, q, k, v,
+                                        Dp, return_lse=True, **kw)
+    assert got_o.shape == o.shape and Dp > D
+    torch.testing.assert_close(got_o, o, rtol=0, atol=2e-5)
+    torch.testing.assert_close(got_lse, lse, rtol=0, atol=2e-5)
+    do = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        tuple(o.shape)).astype(np.float32))
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    got = kfa.padded_backward(ref.flash_attention_bwd_ref, q, k, v, o, lse,
+                              do, Dp, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-5)
+
+
+def test_kernel_head_dim_pads_to_the_next_instantiation():
+    assert [kfa.kernel_head_dim(d) for d in (1, 16, 17, 32, 64, 65, 128,
+                                             192, 256)] == \
+        [16, 16, 64, 64, 64, 128, 128, 256, 256]
+    with pytest.raises(ValueError, match="wider than 256"):
+        kfa.kernel_head_dim(257)
+
+
 def test_wrappers_raise_on_a_device_without_a_kernel():
     _, (q, k, v) = _flash_inputs(FLASH_CASES["mha_causal"], "f32")
     with pytest.raises(ValueError, match="no kernel"):

@@ -98,7 +98,8 @@ def _x(shape, seed=0, scale=1.0):
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-8b",
                                   "granite-3-8b", "phi3-medium-14b",
                                   "granite-moe-3b-a800m",
-                                  "deepseek-v2-lite-16b"])
+                                  "deepseek-v2-lite-16b",
+                                  "command-r-plus-104b", "whisper-medium"])
 def test_configs_match_reference(arch):
     """The port's copies of the configs are the reference's, field for
     field (less ``use_pallas``), full size and reduced, with the same
@@ -116,21 +117,23 @@ def test_configs_match_reference(arch):
 
 
 def test_registry_runs_only_ported_archs():
-    assert sorted(list_archs()) == ["deepseek-v2-lite-16b", "granite-3-8b",
+    assert sorted(list_archs()) == ["command-r-plus-104b",
+                                    "deepseek-v2-lite-16b", "granite-3-8b",
                                     "granite-8b", "granite-moe-3b-a800m",
-                                    "phi3-medium-14b", "recurrentgemma-2b"]
-    for name in ("xlstm-125m", "whisper-medium", "llava-next-34b",
-                 "command-r-plus-104b", "no-such-arch"):
+                                    "phi3-medium-14b", "recurrentgemma-2b",
+                                    "whisper-medium"]
+    for name in ("xlstm-125m", "llava-next-34b", "no-such-arch"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(name)
-    for cfg in (jget_config("xlstm-125m"), jget_config("command-r-plus-104b"),
-                jget_config("whisper-medium"), jget_config("llava-next-34b")):
+    for cfg in (jget_config("xlstm-125m"), jget_config("llava-next-34b")):
         tcfg = get_config("granite-8b")
         fields = {f.name for f in dataclasses.fields(tcfg)}
         port = type(tcfg)(**{k: v for k, v in dataclasses.asdict(cfg).items()
                              if k in fields})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(port)
+    for name in ("command-r-plus-104b", "whisper-medium"):
+        LM(get_config(name))
 
 
 # ------------------------------------------------------------- layers
