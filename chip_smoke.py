@@ -3,8 +3,9 @@ service, the paper's §4 HPO loop (in process, over HTTP from worker
 processes, and through a sharded fleet that loses a shard), the LM
 server (recurrentgemma-2b; the MoE family: granite-moe-3b-a800m and
 deepseek-v2-lite-16b; the encoder-decoder whisper-medium and the
-parallel-block command-r-plus-104b), the error-feedback int8 all-reduce,
-and LM training (one model, and a population of trials in one program).
+parallel-block command-r-plus-104b; the VLM llava-next-34b and the xLSTM
+xlstm-125m), the error-feedback int8 all-reduce, and LM training (one
+model, and a population of trials in one program).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -136,6 +137,10 @@ script exits non-zero and prints no result):
    shifted by one); timed beside the plain version, SDPA (the first
    backend that takes the layout, causal or not as the layout is) and
    the bound.
+4d. ``flash_attention`` at llava-next-34b's prefill layout (B 4, S 3328:
+   2304 image positions and a 1024-token prompt, H 56, K 8, D 128,
+   causal) in bf16 and float32, held and timed as 4c's layouts are (the
+   planted fault: KV heads shifted by one).
 5. the LM server at full width — ``serve("recurrentgemma-2b", batch=4,
    prompt_len=3000, gen=64, reduced=False)`` with random weights from its
    seed: exactly 8 ``flash_attention`` and 18 ``rglru_scan`` launches in
@@ -186,6 +191,25 @@ script exits non-zero and prints no result):
    float32, and planted faults (the encoder run causal, cross-attention
    fed the decoder's own hidden state, sinusoidal positions shifted by
    one; command-r run as sequential blocks) failing the layer limit.
+5d. llava-next-34b and xlstm-125m served at full width — ``serve(arch,
+   batch=4, gen=64, reduced=False)``, random weights from the seed:
+   llava with 2304 stub patch embeddings and prompt 1024 at 30 of its 60
+   layers (the cut is printed), its cache n_img + prompt + gen = 3392
+   positions, exactly 30 ``flash_attention`` launches a prefill; xlstm
+   at full depth with prompt 3000 and no kernel launch at all (the
+   reference has no kernel for its blocks); none in decode, finite
+   logits, prefill ms, decode tokens a second, peak memory, and for
+   xlstm the share of the prefill its 3 sLSTM layers' per-step loops
+   take and what one launches a step; one more prefill and 8 decode
+   steps of each under torch.profiler; then the hold (llava at depth 2,
+   xlstm at full depth): every attention (llava) or mLSTM / sLSTM block
+   (xlstm) output of the prefill within ``LAYER_FACTOR`` and the logits
+   within ``LOGITS_FACTOR`` of the plain bf16 path's distance from
+   float32, planted faults (the prefix dropped from the text's K/V, the
+   text's positions counted from 0; the mLSTM state reset each chunk,
+   the sLSTM recurrence zeroed) failing the layer limit, and in float32
+   the prefill and 4 decode steps within 1e-3 of max |logits| of one
+   ``forward`` over the same tokens.
 6. the error-feedback int8 all-reduce — (a) ``int8_quantize`` against its
    plain version, bit for bit (codes and scales), at the gradient tree's
    largest leaf (the 256 000 x 2560 embedding), ragged and short inputs,
@@ -271,6 +295,11 @@ and prints their lines and the card.
 
 builds the kernels, runs the encoder-decoder and parallel-block attention
 cases and serving and prints their lines and the card.
+
+    python3 chip_smoke.py --vlm            # phases 1, 4d and 5d alone
+
+builds the kernels, runs llava's attention cases and the VLM and xLSTM
+serving and prints their lines and the card.
 
     python3 chip_smoke.py --train          # phases 1 and 8 alone
 
@@ -366,9 +395,12 @@ RESULTS = {}
 #: the card's name and power limit (``card_line``), set by ``main``: every
 #: line ``emit`` prints and writes names it
 CARD = None
+#: the script's start: every line carries its seconds since (``at_s``)
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
+    fields = dict(fields, at_s=time.perf_counter() - T0)
     if CARD is not None:
         fields = dict(fields, card=CARD)
     RESULTS.setdefault(phase, []).append(fields)
@@ -2162,9 +2194,11 @@ def device_profile(run, top: int = 12):
     """Run ``run`` under torch.profiler: its wall time (ms, synchronised,
     with the profiler's own host cost), the device's busy time (the union
     of its kernels' spans, ms), its kernels by device time, the most
-    first, and the port's own kernels among them."""
+    first, the port's own kernels among them, and the seconds the whole
+    trace took, its reading included (``trace_s``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    t_trace = time.perf_counter()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2172,18 +2206,23 @@ def device_profile(run, top: int = 12):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # (name, start, end) in us of each device record, read from the
+    # profiler's raw results: ``prof.events()`` builds a tree of Python
+    # objects at ~0.1 ms an event (on the H100 machine's host, 110 s for
+    # xlstm-125m's prefill: 232 k kernels and the host's records of them)
+    kernels = [(e.name(), e.start_ns() / 1e3,
+                (e.start_ns() + e.duration_ns()) / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
     busy, end = 0.0, -math.inf
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in kernels):
+    for start, stop in sorted(k[1:] for k in kernels):
         if stop > end:
             busy += stop - max(start, end)
             end = stop
     by_name = {}
-    for e in kernels:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
-                           n + 1)
+    for name, start, stop in kernels:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (stop - start) / 1e3, n + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(wall_ms=wall_ms, device_busy_ms=busy / 1e3,
                 device_idle_share=1.0 - busy / 1e3 / wall_ms,
@@ -2192,7 +2231,8 @@ def device_profile(run, top: int = 12):
                      for name, (ms, n) in ranked],
                 own=[dict(kernel=name[:90], ms=ms, launches=n)
                      for name, (ms, n) in by_name.items()
-                     if any(k in name for k in OWN_KERNELS)])
+                     if any(k in name for k in OWN_KERNELS)],
+                trace_s=time.perf_counter() - t_trace)
 
 
 def phase_serve():
@@ -2497,7 +2537,8 @@ def hold_paths(arch, cfg, p32, batch, kinds, launches, spies, faults,
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import cast_params
     B, S = batch["tokens"].shape
-    cache_len = S + HOLD_STEPS
+    n_img = batch["img_embeds"].shape[1] if "img_embeds" in batch else 0
+    cache_len = n_img + S + HOLD_STEPS
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p16 = cast_params(p32, torch.bfloat16)
     fed = []
@@ -2548,10 +2589,10 @@ def hold_paths(arch, cfg, p32, batch, kinds, launches, spies, faults,
         del params
         first = next((i for i, (fe, pe) in enumerate(zip(rel, plain_rel))
                       if fe > LAYER_FACTOR * pe), None)
+        worst = max(fe / max(pe, 1e-30) for fe, pe in zip(rel, plain_rel))
         planted[fault] = dict(
             layers_reject=not layers_ok(rel), first_layer_rejected=first,
-            worst_layer_ratio=max(fe / max(pe, 1e-30)
-                                  for fe, pe in zip(rel, plain_rel)),
+            worst_layer_ratio=worst, over_limit=worst / LAYER_FACTOR,
             logits_reject=not logits_ok(logits))
         check(planted[fault]["layers_reject"],
               f"{arch}: planted fault {fault} passes the layer limit: "
@@ -2816,18 +2857,26 @@ def phase_moe_serve():
     return total
 
 
-# ------------------------------------------------------------ phase 4c
-#: (name, B, Sq, Skv, H, K, D, causal) of the encoder-decoder family's and
-#: the parallel block's prefill attention, bf16, at their serve shapes:
-#: whisper-medium's encoder (1536 frames, non-causal), its decoder's
-#: cross-attention (384 queries over the 1536 encoder positions) and
-#: self-attention (384, causal), all 16 heads of 64; command-r-plus-104b's
-#: GQA, 96 query heads over 8 KV heads of 128, prompt 3000
+# ------------------------------------------------------- phases 4c and 4d
+#: (name, B, Sq, Skv, H, K, D, causal, dtype) of the encoder-decoder
+#: family's and the parallel block's prefill attention at their serve
+#: shapes: whisper-medium's encoder (1536 frames, non-causal), its
+#: decoder's cross-attention (384 queries over the 1536 encoder positions)
+#: and self-attention (384, causal), all 16 heads of 64;
+#: command-r-plus-104b's GQA, 96 query heads over 8 KV heads of 128,
+#: prompt 3000
 ENCDEC_FLASH_CASES = (
-    ("whisper_encoder", 4, 1536, 1536, 16, 16, 64, False),
-    ("whisper_cross", 4, 384, 1536, 16, 16, 64, False),
-    ("whisper_decoder", 4, 384, 384, 16, 16, 64, True),
-    ("command_r", 4, 3000, 3000, 96, 8, 128, True),
+    ("whisper_encoder", 4, 1536, 1536, 16, 16, 64, False, "bfloat16"),
+    ("whisper_cross", 4, 384, 1536, 16, 16, 64, False, "bfloat16"),
+    ("whisper_decoder", 4, 384, 384, 16, 16, 64, True, "bfloat16"),
+    ("command_r", 4, 3000, 3000, 96, 8, 128, True, "bfloat16"),
+)
+#: the same for llava-next-34b's prefill (4d): 2304 image positions and a
+#: 1024-token prompt (3328), causal, 56 query heads over 8 KV heads of 128
+#: (7 a KV head), in bf16 and float32
+VLM_FLASH_CASES = (
+    ("llava", 4, 3328, 3328, 56, 8, 128, True, "bfloat16"),
+    ("llava_f32", 4, 3328, 3328, 56, 8, 128, True, "float32"),
 )
 
 
@@ -2841,36 +2890,35 @@ def plain_by_batch(q, k, v, **kw):
                       for i in range(q.shape[0])])
 
 
-def phase_encdec_kernels():
-    """4c: ``flash_attention`` at the four layouts of
-    ``ENCDEC_FLASH_CASES``, held element by element to the float32 oracle
-    on the same inputs (``FLASH_TOL``), a planted fault failing that
-    limit (a non-causal layout made causal, whisper's causal decoder made
-    non-causal, command-r's K and V heads shifted by one); timed beside
-    the plain version, SDPA (the first backend that takes the layout) and
-    the bound (4·D operations a visible pair a head; q, k, v and o once)
-    -> {layout: its kernel, plain, SDPA and bound times and its error}."""
+def flash_layouts(cases, where: str):
+    """4c, 4d: ``flash_attention`` at each layout of ``cases``, held
+    element by element to the float32 oracle on the same inputs
+    (``FLASH_TOL``), a planted fault failing that limit (K and V heads
+    shifted by one where heads are grouped, else a non-causal layout made
+    causal and a causal one non-causal); timed beside the plain version,
+    SDPA (the first backend that takes the layout) and the bound (4·D
+    operations a visible pair a head; q, k, v and o once) -> {layout: its
+    kernel, plain, SDPA and bound times and its error}."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ref
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     layouts = {}
-    for name, B, Sq, Skv, H, K, D, causal in ENCDEC_FLASH_CASES:
+    for name, B, Sq, Skv, H, K, D, causal, dtype in cases:
         free_card(f"flash_case {name}")
         gen.manual_seed(Sq + Skv + H)
-        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(
-            torch.bfloat16)
-        k, v = (torch.randn((B, Skv, K, D), generator=gen, device=dev).to(
-            torch.bfloat16) for _ in range(2))
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, Skv, K, D), generator=gen, device=dev).to(dt)
+                for _ in range(2))
         out = kfa.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
-        # the plain version is float32 inside: on bf16 inputs it is the
-        # float32 oracle rounded once
+        # the plain version is float32 inside: on inputs of ``dt`` it is
+        # the float32 oracle rounded once to ``dt``
         ref32 = plain_by_batch(q.float(), k.float(), v.float(),
                                causal=causal)
-        abs_err = float((out.float() - ref32.to(torch.bfloat16).float())
-                        .abs().max())
-        excess = flash_excess(out, ref32, "bfloat16")
+        abs_err = float((out.float() - ref32.to(dt).float()).abs().max())
+        excess = flash_excess(out, ref32, dtype)
         check(math.isfinite(excess) and excess <= 1.0,
               f"flash_attention {name}: {excess} x its element-wise limit")
         if K < H:
@@ -2880,7 +2928,7 @@ def phase_encdec_kernels():
         else:
             fault = "made_noncausal" if causal else "made_causal"
             bad = plain_by_batch(q, k, v, causal=not causal)
-        planted = {fault: flash_excess(bad, ref32, "bfloat16")}
+        planted = {fault: flash_excess(bad, ref32, dtype)}
         check(planted[fault] > 1.0,
               f"planted fault {fault} passes: {planted[fault]}")
         del bad
@@ -2889,7 +2937,7 @@ def phase_encdec_kernels():
         lib_ms = lib_err = None
         if backend is not None:
             lib_err = rel_err(lib_out.float(), ref32)
-            check(lib_err <= SDPA_LIMIT["bfloat16"],
+            check(lib_err <= SDPA_LIMIT[dtype],
                   f"sdpa {name} ({backend}) disagrees: {lib_err}")
             lib_ms = time_ms(sdpa)
         del lib_out, ref32
@@ -2898,10 +2946,11 @@ def phase_encdec_kernels():
                                                            causal=causal))
         flops = 4 * B * H * D * visible_pairs(Sq, Skv, causal, 0)
         nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS
+                             if dtype == "bfloat16" else PEAK_F32_FLOPS)
         emit("flash_case", case=name, B=B, Sq=Sq, Skv=Skv, H=H, K=K, D=D,
-             causal=causal, window=0, softcap=0.0, dtype="bfloat16",
-             tol=FLASH_TOL["bfloat16"], excess=excess,
+             causal=causal, window=0, softcap=0.0, dtype=dtype,
+             tol=FLASH_TOL[dtype], excess=excess,
              planted_excess=planted, max_abs_err=abs_err, ms=ms,
              plain_ms=plain_ms, sdpa_ms=lib_ms, sdpa_backend=backend,
              sdpa_rel_err=lib_err, bound_ms=bound, bound_by=by,
@@ -2909,7 +2958,7 @@ def phase_encdec_kernels():
         layouts[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=lib_ms)
         del q, k, v, out
-    free_card("after phase 4c")
+    free_card(f"after phase {where}")
     return layouts
 
 
@@ -2927,7 +2976,8 @@ ENCDEC_ARCHS = {"whisper-medium": (384, None, 72, 24),
                 "command-r-plus-104b": (3000, 8, 8, 2)}
 
 
-def encdec_config(arch: str, layers):
+def served_config(arch: str, layers):
+    """The published config of ``arch``, cut to ``layers`` (None: all)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     return cfg if layers is None else dataclasses.replace(cfg,
@@ -2949,7 +2999,7 @@ def encdec_hold(arch: str, depth: int, prompt_len: int) -> dict:
     from repro_torch.models import model as M
 
     dev = torch.device("cuda", 0)
-    cfg = encdec_config(arch, depth)
+    cfg = served_config(arch, depth)
     B = ENCDEC_SERVE["batch"]
     p32 = M.LM(cfg).init(seed=1, device=dev, dtype=torch.float32)
     rng = np.random.default_rng(1)
@@ -3005,8 +3055,8 @@ def phase_encdec_serve():
     B, gen = ENCDEC_SERVE["batch"], ENCDEC_SERVE["gen"]
     served = {}
     for arch, (S, layers, n_attn, _) in ENCDEC_ARCHS.items():
-        cfg = encdec_config(arch, layers)
-        published = encdec_config(arch, None).n_layers
+        cfg = served_config(arch, layers)
+        published = served_config(arch, None).n_layers
         if layers is not None:
             print(f"chip_smoke: {arch} served at {layers} of its "
                   f"{published} layers (full width)", flush=True)
@@ -3018,6 +3068,215 @@ def phase_encdec_serve():
     profile_served("encdec_serve", served)
     for arch, (S, _, _, depth) in ENCDEC_ARCHS.items():
         emit("encdec_hold", arch=arch, **encdec_hold(arch, depth, S))
+    return total
+
+
+# ------------------------------------------------------------ phase 5d
+VLM_SERVE = dict(batch=4, gen=64)
+#: arch -> (prompt length, layers served (None: all), flash_attention
+#: launches a prefill, the depth of the float32 hold).  llava-next-34b:
+#: its 2304 stub patch embeddings and a 1024-token prompt (3328 positions,
+#: a cache of 3392) at its published widths and 30 of its 60 layers
+#: (17.65 B parameters, 35.3 GB of bf16 weights; all 60 would be 68.8 GB,
+#: past what the card has beside the ~10.5 GB that phase 3 leaves outside
+#: the allocator), held at depth 2 (~8 GB in float32).  xlstm-125m at
+#: full depth and width, prompt 3000 (12 mLSTM chunks), no kernel: the
+#: reference has none for its blocks
+VLM_ARCHS = {"llava-next-34b": (1024, 30, 30, 2),
+             "xlstm-125m": (3000, None, 0, 12)}
+#: float32 prefill and decode against one forward over the same tokens:
+#: max |difference| over max |forward logits|.  The same model in another
+#: order of operations (decode's one query against the cache): float32
+#: rounding, ~1e-6; a cache or prefix position off by one moves logits
+#: by O(1) of their size
+FORWARD_TOL = 1e-3
+
+
+def slstm_share(run: dict) -> dict:
+    """xlstm-125m's served prefill once more, the card synchronised around
+    each sLSTM layer's call, and one sLSTM layer at the served shape
+    traced (``device_profile``): the prefill's ms, the sLSTM layers' ms
+    and share of it, the prefill without them, and what one layer's
+    per-step loop launches (kernels a layer and a time step)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import recurrent as R
+    model = M.LM(run["cfg"])
+    slstm = R.slstm_forward
+    spent, first = [], []
+
+    def timed(p, x, cfg, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = slstm(p, x, cfg, **kw)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+        if not first:
+            first.append((p, x))
+        return out
+
+    with patched(R, slstm_forward=timed), torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(run["params"], run["batch"], run["cache_len"])
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    p, x = first[0]
+    with torch.inference_mode():
+        one = device_profile(lambda: slstm(p, x, run["cfg"]), top=6)
+    steps = x.shape[1]
+    return dict(prefill_ms=prefill_ms, slstm_layers=len(spent),
+                slstm_ms=spent, slstm_share=sum(spent) / prefill_ms,
+                prefill_without_slstm_ms=prefill_ms - sum(spent),
+                one_layer_launches=one["device_kernels"],
+                launches_a_step=one["device_kernels"] / steps,
+                one_layer_traced=one)
+
+
+def forward_agrees(cfg, p32, batch) -> dict:
+    """In float32: the prefill and ``HOLD_STEPS`` greedy decode steps
+    against one ``forward`` over the prompt and the tokens decode was
+    fed, each within ``FORWARD_TOL`` of max |forward logits| (a cache or
+    a prefix position off by one fails it) -> the hold's fields."""
+    from repro_torch.models import model as M
+    model = M.LM(dataclasses.replace(cfg, dtype="float32"))
+    n_img = batch["img_embeds"].shape[1] if "img_embeds" in batch else 0
+    S = batch["tokens"].shape[1]
+    with torch.inference_mode():
+        cache, lg = model.prefill(p32, batch, n_img + S + HOLD_STEPS)
+        logits, fed = [lg], []
+        for _ in range(HOLD_STEPS):
+            fed.append(torch.argmax(lg, dim=-1))
+            lg, cache = model.decode_step(p32, cache, fed[-1])
+            logits.append(lg)
+        del cache
+        tokens = torch.cat([batch["tokens"], torch.stack(fed, dim=1)], 1)
+        full, _ = model.forward(p32, dict(batch, tokens=tokens))
+        full = full[:, S - 1:]
+    scale = float(full.abs().max())
+    errs = [float((a - full[:, i]).abs().max()) / scale
+            for i, a in enumerate(logits)]
+    check(max(errs) <= FORWARD_TOL, f"{cfg.name}: float32 prefill and "
+          f"decode against forward: {errs} > {FORWARD_TOL}")
+    return dict(forward_rel_err_f32=errs, forward_limit=FORWARD_TOL)
+
+
+def vlm_hold(arch: str, depth: int, prompt_len: int) -> dict:
+    """5d's hold (``hold_paths``) at full width and depth ``depth``, the
+    weights drawn in float32, the plain attention one batch row at a time
+    (``plain_by_batch``), then ``forward_agrees``.  llava: every attention
+    output of the prefill spied; planted faults: the image prefix dropped
+    from the text's keys and values (prefix and text attended apart), the
+    text's positions counted from 0 instead of from the prefix's end.
+    xlstm: every mLSTM and sLSTM block's output (its served path is the
+    plain one, so the hold is against float32); planted faults: the mLSTM
+    state reset at each chunk, the sLSTM recurrence ``r`` zeroed."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import recurrent as R
+
+    dev = torch.device("cuda", 0)
+    cfg = served_config(arch, depth)
+    B = VLM_SERVE["batch"]
+    p32 = M.LM(cfg).init(seed=1, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (B, prompt_len)), device=dev)}
+    if cfg.family == "vlm":
+        n = cfg.n_img_tokens
+        batch["img_embeds"] = torch.as_tensor(
+            rng.normal(0, 1, (B, n, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+        fa, positions_in = ops.flash_attention, M.LM._positions_in
+
+        def prefix_dropped(q, k, v, **kw):
+            return torch.cat([fa(q[:, :n], k[:, :n], v[:, :n], **kw),
+                              fa(q[:, n:], k[:, n:], v[:, n:], **kw)], 1)
+
+        def text_from_0(self, x):
+            x, pos = positions_in(self, x)
+            return x, torch.cat([pos[:n], pos[n:] - n])
+
+        kinds, launches = ["attn"] * depth, depth
+
+        def spies(keep):
+            return [spy_attention(keep)]
+
+        faults = {
+            "prefix_dropped_from_kv": (cfg, None, [(ops, dict(
+                flash_attention=prefix_dropped))]),
+            "text_positions_from_0": (cfg, None, [(M.LM, dict(
+                _positions_in=text_from_0))])}
+    else:
+        kinds, launches = list(cfg.pattern), 0
+        chunk = R._mlstm_chunk
+
+        def spies(keep):
+            def spy(fwd):
+                def run(*a, **kw):
+                    out = fwd(*a, **kw)
+                    keep(out[0] if isinstance(out, tuple) else out)
+                    return out
+                return run
+            return [(R, dict(mlstm_forward=spy(R.mlstm_forward),
+                             slstm_forward=spy(R.slstm_forward)))]
+
+        def chunk_from_zero(carry, inp, scale):
+            C, nn, m = carry
+            return chunk((torch.zeros_like(C), torch.zeros_like(nn),
+                          torch.full_like(m, -60.0)), inp, scale)
+
+        def r_zeroed(p16):
+            return dict(p16, layers=[
+                dict(lp, slstm=dict(lp["slstm"], r=torch.zeros_like(
+                    lp["slstm"]["r"]))) if "slstm" in lp else lp
+                for lp in p16["layers"]])
+
+        faults = {
+            "mlstm_state_reset_each_chunk": (cfg, None, [(R, dict(
+                _mlstm_chunk=chunk_from_zero))]),
+            "slstm_r_zeroed": (cfg, r_zeroed, [])}
+    t0 = time.perf_counter()
+    out = hold_paths(arch, cfg, p32, batch, kinds, launches, spies, faults,
+                     plain_by_batch)
+    out.update(forward_agrees(cfg, p32, batch),
+               n_img_tokens=cfg.n_img_tokens,
+               hold_s=time.perf_counter() - t0)
+    del p32, batch
+    free_card(f"vlm_hold {arch}")
+    return out
+
+
+def phase_vlm_serve():
+    """5d: ``serve`` of llava-next-34b (full width, ``VLM_ARCHS``' cut of
+    its depth, printed) and xlstm-125m (full depth) through
+    ``serve_spied``, batch 4, 64 tokens: the cache sized n_img + prompt +
+    gen; xlstm's sLSTM share (``slstm_share``); once both have served,
+    ``profile_served``, then ``vlm_hold``.  -> the LM kernels' launches
+    summed over both serve runs (counters zeroed just before each)."""
+    total = {n: 0 for n in lm_counters()}
+    B, gen = VLM_SERVE["batch"], VLM_SERVE["gen"]
+    served = {}
+    for arch, (S, layers, n_attn, _) in VLM_ARCHS.items():
+        cfg = served_config(arch, layers)
+        published = served_config(arch, None).n_layers
+        if layers is not None:
+            print(f"chip_smoke: {arch} served at {layers} of its "
+                  f"{published} layers (full width)", flush=True)
+        launches, run = serve_spied(arch, cfg, B, S, gen, n_attn)
+        n_img = cfg.n_img_tokens
+        check(run["cache_len"] == n_img + S + gen,
+              f"{arch}: serve's cache holds {run['cache_len']} positions, "
+              f"not {n_img} + {S} + {gen}")
+        run["line"].update(published_layers=published, n_img_tokens=n_img,
+                           cache_len=run["cache_len"])
+        if cfg.family == "ssm":
+            run["line"]["slstm"] = slstm_share(run)
+        for n in total:
+            total[n] += launches[n]
+        served[arch] = run
+    profile_served("vlm_serve", served)
+    for arch, (S, _, _, depth) in VLM_ARCHS.items():
+        emit("vlm_hold", arch=arch, **vlm_hold(arch, depth, S))
     return total
 
 
@@ -3891,8 +4150,14 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--encdec"]:
         phase_card()
-        phase_encdec_kernels()
+        flash_layouts(ENCDEC_FLASH_CASES, "4c")
         phase_encdec_serve()
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--vlm"]:
+        phase_card()
+        flash_layouts(VLM_FLASH_CASES, "4d")
+        phase_vlm_serve()
         print(card_line())
         return 0
     if sys.argv[1:] == ["--train"]:
@@ -3937,9 +4202,12 @@ def main() -> int:
     free_card("after phase 5")
     moe = phase_moe_serve()
     free_card("after phase 5b")
-    layouts = phase_encdec_kernels()
+    layouts = flash_layouts(ENCDEC_FLASH_CASES, "4c")
     encdec = phase_encdec_serve()
     free_card("after phase 5c")
+    layouts.update(flash_layouts(VLM_FLASH_CASES, "4d"))
+    vlm = phase_vlm_serve()
+    free_card("after phase 5d")
     summary.update(phase_quant_kernels())
     launches.update(phase_compress())
     free_card("after phase 6b")
@@ -3989,6 +4257,7 @@ def main() -> int:
         k["population_launches"] = population.get(k["name"], 0)
         k["moe_serve_launches"] = moe.get(k["name"], 0)
         k["encdec_serve_launches"] = encdec.get(k["name"], 0)
+        k["vlm_serve_launches"] = vlm.get(k["name"], 0)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

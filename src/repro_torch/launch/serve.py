@@ -6,7 +6,8 @@
 Without ``--device`` it runs on the CUDA card and raises when there is
 none.  The prefill's attention and RG-LRU layers go through the
 hand-written CUDA kernels there (``kernels/ops.py``); decode is plain
-torch, as the reference's is XLA.
+torch, as the reference's is XLA, and so are the xLSTM blocks, for which
+the reference has no kernel.
 """
 from __future__ import annotations
 
@@ -32,16 +33,25 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *,
     ``prompt_len`` tokens -> (batch, gen) int64 numpy array.
 
     Prompts come from ``np.random.default_rng(seed)``, as in the
-    reference, and for an encoder-decoder the frames (batch,
-    ``encoder_seq``, d) from the same generator right after them.  ``params`` (e.g. from ``models.convert``) are cast to the
-    compute dtype and moved to the device; without them the weights are
-    drawn from a ``torch.Generator`` seeded with ``seed`` on the device,
-    each cast once to the compute dtype."""
+    reference, and from the same generator right after them a VLM's
+    image embeddings (batch, ``n_img_tokens``, d) or an encoder-decoder's
+    frames (batch, ``encoder_seq``, d).  ``params`` (e.g. from
+    ``models.convert``) are cast to the compute dtype and moved to the
+    device; without them the weights are drawn from a ``torch.Generator``
+    seeded with ``seed`` on the device, each cast once to the compute
+    dtype.
+
+    The decode cache holds ``prompt_len + gen`` positions, and a VLM's
+    image prefix besides: the reference's ``serve`` leaves the prefix
+    out, so its cache overflows once the prefix is longer than ``gen``
+    (ROADMAP.md §3)."""
     dev = resolve(device)
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     cache_len = prompt_len + gen
+    if cfg.family == "vlm":
+        cache_len += cfg.n_img_tokens
     model, prefill_step = S.make_prefill_step(cfg, cache_len)
     _, serve_step = S.make_serve_step(cfg)
     if params is None:
@@ -53,7 +63,11 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *,
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (batch, prompt_len)), device=dev)
     pbatch = {"tokens": prompts}
-    if cfg.family == "encdec":
+    if cfg.family == "vlm":
+        pbatch["img_embeds"] = torch.as_tensor(
+            rng.normal(0, 1, (batch, cfg.n_img_tokens, cfg.d_model)),
+            dtype=cfg.compute_dtype, device=dev)
+    elif cfg.family == "encdec":
         pbatch["frames"] = torch.as_tensor(
             rng.normal(0, 1, (batch, cfg.encoder_seq, cfg.d_model)),
             dtype=cfg.compute_dtype, device=dev)

@@ -8,7 +8,10 @@ port's flat list of layers.  Dense weights stay (d_in, d_out), the layout
 the port's ``layers.dense`` applies as ``x @ w``, so no weight is
 transposed.  An encoder-decoder's encoder layers, stacked by the
 reference with a leading ``encoder_layers`` dim, become the list
-``params["encoder"]["layers"]`` beside the encoder's ``norm``.  With it
+``params["encoder"]["layers"]`` beside the encoder's ``norm``.  A layer's
+nested blocks come across whole (an sLSTM's ``r`` (4, H, dh, dh), its
+``ffn`` and ``ffn_norm`` inside ``slstm``; xlstm-125m's one group (m, m,
+m, s) x 3 unstacks into 12 layers).  With it
 the two packages compute the same function on the same weights, which is
 how the tests hold one against the other.
 

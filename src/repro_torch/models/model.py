@@ -1,11 +1,17 @@
-"""The LM of the port, for the dense, hybrid, MoE and encoder-decoder
-families.
+"""The LM of the port, for all ten architectures of the reference.
 
 The port's copy of the reference's ``models/model.py``:
   dense    decoder-only transformer (GQA attention, MLP); with
            ``cfg.parallel_block`` (command-r) one norm feeds attention and
            the FFN side by side, ``x + att + ffn(h)``
   hybrid   Griffin-style (RG-LRU, RG-LRU, local-attn) stacks
+  ssm      xLSTM (mLSTM, mLSTM, mLSTM, sLSTM) stacks; both blocks return
+           before the FFN (an sLSTM block carries its own)
+  vlm      a decoder LM over precomputed (stub) patch embeddings
+           ``img_embeds`` (B,n_img,d) put in front of the token
+           embeddings: positions run over prefix and text, ``forward``
+           drops the prefix before the unembedding, the prefill's cache
+           holds it (``pos`` starts at n_img + prompt length)
   moe      decoder-only transformer (GQA or MLA attention; MoE FFN after
            ``first_dense_layers`` layers with a dense MLP)
   encdec   whisper: an encoder of ``encoder_layers`` non-causal attention
@@ -20,17 +26,16 @@ nothing, so the port keeps one flat list of layers in stack order
 (``LM.specs``, ``params["layers"]``, ``cache["layers"]``), and
 ``models/convert.py`` unstacks reference weights (and optimizer state)
 into it along the same groups (``model_groups``); the encoder's layers
-are a list of their own (``params["encoder"]["layers"]``).  The VLM and
-xLSTM families are not ported yet (ROADMAP.md §1): ``LM`` raises
-``NotImplementedError`` for them.  The card serves the encoder-decoder
-family and parallel blocks; their ``forward`` and ``loss`` are held
-against the reference on the CPU only.
+are a list of their own (``params["encoder"]["layers"]``).  The card
+serves every family; the training of the MoE, encoder-decoder,
+parallel-block, VLM and xLSTM models is held against the reference on
+the CPU only.
 
 API (functions of plain dicts of tensors; ``torch.func`` composes with
 ``forward`` and ``loss`` when ``cfg.remat`` is "none"):
   init(seed, device, dtype) -> params
   loss(params, batch) -> (scalar, metrics)         # train_step target
-  forward(params, batch) -> (logits, aux)
+  forward(params, batch) -> (logits over the text, aux)
   prefill(params, batch, cache_len) -> (cache, last_logits)
   decode_step(params, cache, tokens) -> (logits, cache)
   init_cache(batch_size, cache_len, device, enc_len=0) -> cache
@@ -63,8 +68,8 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
-from repro_torch.models.common import (ATTN, LOCAL_ATTN, RGLRU,
-                                       ModelConfig)
+from repro_torch.models.common import (ATTN, LOCAL_ATTN, MLSTM, RGLRU,
+                                       SLSTM, ModelConfig)
 
 Params = Dict[str, Any]
 
@@ -100,7 +105,7 @@ class _TiedCast(torch.autograd.Function):
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str          # attn | local | rglru | xattn
+    kind: str          # attn | local | rglru | mlstm | slstm | xattn
     ffn: str           # mlp | dense_mlp | moe | none
 
 
@@ -132,22 +137,27 @@ def build_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
                  for _ in range(reps) for spec in pattern)
 
 
+#: what the reference's LM defines, and so what the port's runs
+FAMILIES = ("dense", "hybrid", "moe", "encdec", "vlm", "ssm")
+POS_KINDS = ("rope", "none", "sincos")
+KINDS = (ATTN, LOCAL_ATTN, RGLRU, MLSTM, SLSTM)
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     why = None
-    if cfg.family not in ("dense", "hybrid", "moe", "encdec"):
+    if cfg.family not in FAMILIES:
         why = f"the {cfg.family} family"
-    elif cfg.pos_kind not in ("rope", "none", "sincos"):
+    elif cfg.pos_kind not in POS_KINDS:
         why = f"{cfg.pos_kind} positions"
     else:
-        bad = sorted(set(cfg.pattern) - {ATTN, LOCAL_ATTN, RGLRU})
+        bad = sorted(set(cfg.pattern) - set(KINDS))
         if bad:
             why = f"layer kinds {bad}"
     if why:
         raise NotImplementedError(
-            f"{cfg.name}: {why} is not ported yet; the port's LM runs the "
-            "dense (parallel blocks too), hybrid, MoE and encoder-decoder "
-            "families, and ROADMAP.md §1 queues the rest (VLM, "
-            "mLSTM/sLSTM)")
+            f"{cfg.name}: {why} is not defined by the reference; the LM "
+            f"runs the families {FAMILIES}, positions {POS_KINDS} and "
+            f"layer kinds {KINDS}")
 
 
 def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree):
@@ -182,8 +192,14 @@ def _init_layer(init: L.Init, spec: LayerSpec, cfg: ModelConfig) -> Params:
         p["attn"] = A.init_attention(init, cfg)
         p["ln_x"] = L.init_norm(init, cfg.d_model, cfg)
         p["cross"] = A.init_attention(init, cfg, cross=True)
-    else:
+    elif spec.kind == RGLRU:
         p["rglru"] = R.init_rglru_block(init, cfg)
+    elif spec.kind == MLSTM:
+        p["mlstm"] = R.init_mlstm_block(init, cfg)
+    elif spec.kind == SLSTM:
+        p["slstm"] = R.init_slstm_block(init, cfg)
+    else:
+        raise ValueError(spec.kind)
     if spec.ffn != "none" and not cfg.parallel_block:
         p["ln2"] = L.init_norm(init, cfg.d_model, cfg)
     if spec.ffn == "mlp":
@@ -236,11 +252,16 @@ def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
                                     kv_source=enc)
             x = x + xa
     else:
+        name = spec.kind                    # rglru | mlstm | slstm
+        fwd = getattr(R, f"{name}_forward")
         if collect_cache:
-            y, entry = R.rglru_forward(p["rglru"], h, cfg, return_cache=True)
+            y, entry = fwd(p[name], h, cfg, return_cache=True)
         else:
-            y = R.rglru_forward(p["rglru"], h, cfg)
+            y = fwd(p[name], h, cfg)
         x = x + y
+        if name != RGLRU:                   # xLSTM blocks: no FFN after
+            return (x, torch.zeros((), dtype=torch.float32, device=x.device),
+                    entry)
     if spec.ffn == "none":
         return x, torch.zeros((), dtype=torch.float32, device=x.device), entry
     ff, aux = _ffn_apply(spec, p, L.apply_norm(p["ln2"], x, eps), cfg)
@@ -269,6 +290,9 @@ def _pad_kv(kv: Params, cache_len: int, window: int, cfg) -> Params:
     def pad_seq(v, n):
         return F.pad(v, (0, 0) * (v.dim() - 2) + (0, n))
 
+    if not window and S > cache_len:
+        raise ValueError(f"a prefill of {S} positions does not fit a cache "
+                         f"of {cache_len}")
     for name, v in kv.items():
         if window:
             tail = v[:, -buf_len:] if S >= buf_len else v
@@ -300,8 +324,11 @@ def _layer_decode(spec: LayerSpec, p: Params, x, cache: Params, pos, cfg):
                                    cfg)
             new = dict(new, ck=cache["ck"], cv=cache["cv"])
     else:
-        y, new = R.rglru_decode(p["rglru"], h, cache, cfg)
+        y, new = getattr(R, f"{spec.kind}_decode")(p[spec.kind], h, cache,
+                                                   cfg)
         x = x + y
+        if spec.kind != RGLRU:              # xLSTM blocks: no FFN after
+            return x, new
     if spec.ffn != "none":
         ff, _ = _ffn_apply(spec, p, L.apply_norm(p["ln2"], x, eps), cfg)
         x = x + ff
@@ -320,7 +347,7 @@ def _init_cache_entry(spec: LayerSpec, cfg: ModelConfig, batch: int,
     if spec.kind == LOCAL_ATTN:
         return A.init_cache_attn(cfg, batch, cache_len, window=cfg.window,
                                  device=device)
-    return R.init_rglru_cache(cfg, batch, device=device)
+    return getattr(R, f"init_{spec.kind}_cache")(cfg, batch, device=device)
 
 
 #: an encoder layer: non-causal self-attention and an MLP
@@ -414,6 +441,14 @@ class LM:
         x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
         return L.unembed(table, x, softcap=cfg.logit_softcap)
 
+    def _prefixed(self, x, batch) -> Tuple[torch.Tensor, int]:
+        """x (B,S,d) with a VLM batch's ``img_embeds`` (B,n_img,d), cast to
+        the compute dtype, in front -> (x, n_img); (x, 0) otherwise."""
+        if self.cfg.family != "vlm":
+            return x, 0
+        img = batch["img_embeds"].to(self.cfg.compute_dtype)
+        return torch.cat([img, x], dim=1), img.shape[1]
+
     def _positions_in(self, x):
         """arange(S) for x (B,S,d), and x with sinusoidal positions added
         when the config has them."""
@@ -446,8 +481,9 @@ class LM:
     # ------------------------------------------------------------ training
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """batch: {"tokens": (B,S)} (and "frames" (B,S_enc,d) for an
-        encoder-decoder) -> (logits (B,S,V) in the compute dtype, the MoE
-        aux loss summed over layers: 0 without MoE)."""
+        encoder-decoder, "img_embeds" (B,n_img,d) for a VLM) -> (logits
+        (B,S,V) of the text positions in the compute dtype, the MoE aux
+        loss summed over layers: 0 without MoE)."""
         cfg = self.cfg
         out_table = None
         table = params["embed"]["table"]
@@ -460,6 +496,7 @@ class LM:
             out_table = {"table": out}
         x = self._embed_in(params, batch["tokens"])
         enc = self._encoded(params, batch, train=True)
+        x, n_prefix = self._prefixed(x, batch)
         x, positions = self._positions_in(x)
 
         def layer(spec, lp, x, enc):
@@ -470,7 +507,7 @@ class LM:
         for spec, lp in zip(self.specs, params["layers"]):
             x, a = step(spec, lp, x, enc)
             aux = aux + a
-        return self._unembed(params, x, out_table), aux
+        return self._unembed(params, x[:, n_prefix:], out_table), aux
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """batch: {"tokens", "labels"} (B,S) -> (mean cross entropy plus
@@ -494,12 +531,15 @@ class LM:
                                    device=device)}
 
     def prefill(self, params, batch, cache_len: int):
-        """Run the full prompt, build a decode cache sized ``cache_len``.
-        batch: {"tokens": (B,S)} (and "frames" for an encoder-decoder) ->
-        (cache, logits of the last position (B,V))."""
+        """Run the full prompt, build a decode cache sized ``cache_len``
+        (a VLM's image prefix takes n_img of its positions).  batch:
+        {"tokens": (B,S)} (and "frames" for an encoder-decoder,
+        "img_embeds" for a VLM) -> (cache, logits of the last position
+        (B,V))."""
         tokens = batch["tokens"]
         x = self._embed_in(params, tokens)
         enc = self._encoded(params, batch)
+        x, _ = self._prefixed(x, batch)
         x, positions = self._positions_in(x)
         layers: List[Params] = []
         for spec, lp in zip(self.specs, params["layers"]):

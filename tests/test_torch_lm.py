@@ -10,7 +10,8 @@ follows), reduced ``granite-8b``, ``granite-3-8b`` and
 ``phi3-medium-14b``, with prompts shorter and longer than
 the reduced window of 32, and the MoE family: reduced
 ``granite-moe-3b-a800m`` (GQA, MoE) and ``deepseek-v2-lite-16b`` (MLA,
-a dense first layer, then MoE layers) at depth 3; ``serve`` against the
+a dense first layer, then MoE layers) at depth 3; the registry's ten
+architectures, each served reduced on the CPU; ``serve`` against the
 reference's ``serve`` token for token; and, for the MoE family, ``loss``
 (its router aux loss included) and its gradients against
 ``jax.value_and_grad``.  The JAX outputs are made once per module
@@ -32,6 +33,7 @@ import pytest
 import torch
 
 from repro.configs.registry import get_config as jget_config
+from repro.configs.registry import list_archs as jlist_archs
 from repro.launch import serve as jserve
 from repro.models import attention as JA
 from repro.models import layers as JL
@@ -99,7 +101,8 @@ def _x(shape, seed=0, scale=1.0):
                                   "granite-3-8b", "phi3-medium-14b",
                                   "granite-moe-3b-a800m",
                                   "deepseek-v2-lite-16b",
-                                  "command-r-plus-104b", "whisper-medium"])
+                                  "command-r-plus-104b", "whisper-medium",
+                                  "llava-next-34b", "xlstm-125m"])
 def test_configs_match_reference(arch):
     """The port's copies of the configs are the reference's, field for
     field (less ``use_pallas``), full size and reduced, with the same
@@ -116,24 +119,36 @@ def test_configs_match_reference(arch):
     assert get_config(arch).param_count() == jget_config(arch).param_count()
 
 
-def test_registry_runs_only_ported_archs():
-    assert sorted(list_archs()) == ["command-r-plus-104b",
-                                    "deepseek-v2-lite-16b", "granite-3-8b",
-                                    "granite-8b", "granite-moe-3b-a800m",
-                                    "phi3-medium-14b", "recurrentgemma-2b",
-                                    "whisper-medium"]
-    for name in ("xlstm-125m", "llava-next-34b", "no-such-arch"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(name)
-    for cfg in (jget_config("xlstm-125m"), jget_config("llava-next-34b")):
-        tcfg = get_config("granite-8b")
-        fields = {f.name for f in dataclasses.fields(tcfg)}
-        port = type(tcfg)(**{k: v for k, v in dataclasses.asdict(cfg).items()
-                             if k in fields})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LM(port)
-    for name in ("command-r-plus-104b", "whisper-medium"):
-        LM(get_config(name))
+def test_registry_lists_the_reference_archs():
+    """All ten of the reference's architectures, in its order; an unknown
+    name raises ``KeyError`` as the reference's ``get_config`` does;
+    ``LM`` constructs for each, and refuses a family, position kind or
+    layer kind the reference does not define."""
+    assert list_archs() == jlist_archs()
+    assert len(list_archs()) == 10
+    for get in (get_config, jget_config):
+        with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+            get("no-such-arch")
+    for name in list_archs():
+        assert LM(get_config(name)).cfg.name == name
+    cfg = get_config("granite-8b")
+    for bad in (dict(family="rnn"), dict(pos_kind="alibi"),
+                dict(block_pattern=("mamba",))):
+        with pytest.raises(NotImplementedError, match="not defined by the "
+                           "reference"):
+            LM(dataclasses.replace(cfg, **bad))
+
+
+@pytest.mark.parametrize("arch", jlist_archs())
+def test_serve_runs_every_arch_on_the_cpu(arch):
+    """``serve(arch, reduced=True, device="cpu")`` for each of the
+    reference's ten architectures: greedy tokens of the right shape, in
+    the vocabulary."""
+    seqs = tserve.serve(arch, 2, 12, 4, reduced=True, device="cpu",
+                        log=lambda *a: None)
+    assert seqs.shape == (2, 4)
+    assert 0 <= seqs.min() and seqs.max() < get_config(arch).reduced(
+    ).vocab_size
 
 
 # ------------------------------------------------------------- layers
