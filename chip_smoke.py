@@ -5,7 +5,8 @@ server (recurrentgemma-2b; the MoE family: granite-moe-3b-a800m and
 deepseek-v2-lite-16b; the encoder-decoder whisper-medium and the
 parallel-block command-r-plus-104b; the VLM llava-next-34b and the xLSTM
 xlstm-125m), the error-feedback int8 all-reduce, and LM training (one
-model, and a population of trials in one program).
+model, a population of trials in one program, and the MoE,
+encoder-decoder, parallel-block, VLM and xLSTM families).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -259,6 +260,38 @@ script exits non-zero and prints no result):
    of each kernel a layer a step for all trials, trial-steps a second,
    peak memory; then each trial alone through the same step unbatched,
    every loss within ``POP_TOL`` of the population's.
+   (e) ``flash_attention_bwd`` at the seven layouts the MoE,
+   encoder-decoder, parallel-block and VLM families train at (B 1, the
+   train_4k sequence of 4096, bf16): granite-moe's (H 24, K 8, D 64),
+   MLA's (H = K = 16, q/k 192 and v 128 zero-padded to 256, scale
+   1/sqrt(192)), whisper-medium's encoder (S 1536, non-causal),
+   cross-attention (4096 queries over 1536 keys, non-causal) and decoder
+   self-attention (H = K = 16, D 64), command-r's (H 96, K 8, D 128) and
+   llava's (H 56, K 8, D 128), each held as (a) holds its cases, a
+   planted fault each (dK/dV from one query head of a group, the default
+   scale in MLA's place, causality flipped) failing the limit, timed
+   beside the plain version, the bound and SDPA's backward (no mask,
+   ``is_causal``, ``enable_gqa``; MLA on its unpadded widths).  (f) one
+   ``loss_and_grads`` a family at full width and reduced depth
+   (``FAMILY_HOLDS``: granite-moe 2, deepseek 2, whisper's decoder 2 over
+   its 24 encoder layers, command-r 2 at seq 1024, llava 2, xlstm whole
+   at seq 512; batch 1 from ``concrete_inputs``) through the kernels,
+   their plain versions in bf16 and float32, as (c) holds
+   recurrentgemma's (the dense oracle's autograd path reported); the
+   MoE pair's later runs replay the kernel run's router choices (the
+   share of choices that would have flipped is reported); exactly two
+   forward and one backward launch an attention call (whisper: 24
+   encoder, 2 self and 2 cross); a planted fault each failing it.  (g)
+   three AdamW steps a family at full width, bf16 compute, float32
+   masters, remat "full", batch 1 (``FAMILY_TRAIN``: granite-moe whole at
+   4096, deepseek at 4 of 27 layers, whisper whole, llava at 4 of 60
+   layers over 2304 image and 1792 text positions, xlstm whole at seq
+   1024), the token-only families through ``launch.train.train``,
+   whisper and llava through ``launch.steps.make_train_step`` on
+   ``concrete_inputs`` batches: exactly two forward and one backward
+   ``flash_attention`` launch an attention call a step, finite losses;
+   ms a step, tokens a second and peak memory.  command-r-plus-104b takes
+   no step: one layer and its tied table are 75.5 GB of state.
 
 7. device times — ``gp_ei`` at every case of phase 2 and ``rglru_scan``
    at every case of phase 4 again, on the same inputs, by torch.profiler:
@@ -305,6 +338,12 @@ serving and prints their lines and the card.
 
 builds the kernels, runs LM training's checks and prints their lines and
 the card.
+
+    python3 chip_smoke.py --train-families # phases 1 and 8e-8g alone
+
+builds the kernels, runs the other families' training checks (the
+backward at their layouts, their gradient holds, their train steps) and
+prints their lines and the card.
 """
 from __future__ import annotations
 
@@ -3617,34 +3656,60 @@ def phase_device_times():
 
 
 # ------------------------------------------------------------- phase 8
-#: (name, B, S, H, K, D, causal, window, softcap, dtype) of phase 8a:
-#: the first two are the train shape of recurrentgemma-2b's local
+#: (name, B, Sq, Skv, H, K, D, causal, window, softcap, dtype) of phase
+#: 8a: the first two are the train shape of recurrentgemma-2b's local
 #: attention (batch 1 x 3000, window 2048, no attention softcap);
 #: "gqa_d256" sums the bf16 kernel's per-head shares over several KV heads
 #: and batches at the largest head dim, "population" is the folded shape
 #: phase 8d launches (3 trials x 1024)
 BWD_CASES = (
-    ("train", 1, 3000, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
-    ("train_f32", 1, 3000, 10, 1, 256, True, 2048, 0.0, "float32"),
-    ("gqa_d256", 2, 1000, 8, 2, 256, True, 512, 0.0, "bfloat16"),
-    ("population", 3, 1024, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
-    ("s1", 2, 1, 4, 2, 64, True, 0, 0.0, "bfloat16"),
-    ("s65", 2, 65, 4, 2, 64, True, 32, 0.0, "bfloat16"),
-    ("s1000_f32", 1, 1000, 4, 2, 64, True, 0, 0.0, "float32"),
-    ("gqa_window32", 2, 1000, 4, 2, 64, True, 32, 0.0, "bfloat16"),
-    ("softcap30", 1, 1000, 4, 2, 128, True, 0, 30.0, "bfloat16"),
-    ("softcap30_f32", 1, 1000, 4, 2, 128, True, 0, 30.0, "float32"),
-    ("d16", 2, 1000, 4, 2, 16, True, 0, 0.0, "bfloat16"),
-    ("d128_window_f32", 1, 1000, 8, 2, 128, True, 256, 0.0, "float32"),
-    ("noncausal_d16_f32", 2, 300, 4, 4, 16, False, 0, 0.0, "float32"),
-    ("mla_scaled", 1, 1000, 16, 16, 256, True, 0, 0.0, "bfloat16"),
+    ("train", 1, 3000, 3000, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
+    ("train_f32", 1, 3000, 3000, 10, 1, 256, True, 2048, 0.0, "float32"),
+    ("gqa_d256", 2, 1000, 1000, 8, 2, 256, True, 512, 0.0, "bfloat16"),
+    ("population", 3, 1024, 1024, 10, 1, 256, True, 2048, 0.0, "bfloat16"),
+    ("s1", 2, 1, 1, 4, 2, 64, True, 0, 0.0, "bfloat16"),
+    ("s65", 2, 65, 65, 4, 2, 64, True, 32, 0.0, "bfloat16"),
+    ("s1000_f32", 1, 1000, 1000, 4, 2, 64, True, 0, 0.0, "float32"),
+    ("gqa_window32", 2, 1000, 1000, 4, 2, 64, True, 32, 0.0, "bfloat16"),
+    ("softcap30", 1, 1000, 1000, 4, 2, 128, True, 0, 30.0, "bfloat16"),
+    ("softcap30_f32", 1, 1000, 1000, 4, 2, 128, True, 0, 30.0, "float32"),
+    ("d16", 2, 1000, 1000, 4, 2, 16, True, 0, 0.0, "bfloat16"),
+    ("d128_window_f32", 1, 1000, 1000, 8, 2, 128, True, 256, 0.0, "float32"),
+    ("noncausal_d16_f32", 2, 300, 300, 4, 4, 16, False, 0, 0.0, "float32"),
+    ("mla_scaled", 1, 1000, 1000, 16, 16, 256, True, 0, 0.0, "bfloat16"),
     # D 32, zero-padded to 64 by the wrapper (phase 4's gqa_ragged_d32)
-    ("gqa_ragged_d32", 2, 70, 8, 2, 32, True, 0, 0.0, "bfloat16"),
-    ("gqa_ragged_d32_f32", 2, 70, 8, 2, 32, True, 0, 0.0, "float32"),
+    ("gqa_ragged_d32", 2, 70, 70, 8, 2, 32, True, 0, 0.0, "bfloat16"),
+    ("gqa_ragged_d32_f32", 2, 70, 70, 8, 2, 32, True, 0, 0.0, "float32"),
 )
+#: phase 8e: the attention layouts the MoE, encoder-decoder,
+#: parallel-block and VLM families train at, the reference's train_4k
+#: sequence (4096) at batch 1, bf16: granite-moe's G 3 at D 64; MLA's
+#: q/k 192 and v 128 zero-padded to 256 (``BWD_WIDTHS``) at 1/sqrt(192);
+#: whisper-medium's encoder (1536 frames, non-causal), cross-attention
+#: (4096 queries over 1536 encoder positions, non-causal) and decoder
+#: self-attention; command-r's G 12 and llava's G 7 at D 128
+FAMILY_BWD_CASES = (
+    ("granite_moe_train", 1, 4096, 4096, 24, 8, 64, True, 0, 0.0,
+     "bfloat16"),
+    ("mla_train", 1, 4096, 4096, 16, 16, 256, True, 0, 0.0, "bfloat16"),
+    ("whisper_encoder_train", 1, 1536, 1536, 16, 16, 64, False, 0, 0.0,
+     "bfloat16"),
+    ("whisper_cross_train", 1, 4096, 1536, 16, 16, 64, False, 0, 0.0,
+     "bfloat16"),
+    ("whisper_decoder_train", 1, 4096, 4096, 16, 16, 64, True, 0, 0.0,
+     "bfloat16"),
+    ("command_r_train", 1, 4096, 4096, 96, 8, 128, True, 0, 0.0,
+     "bfloat16"),
+    ("llava_train", 1, 4096, 4096, 56, 8, 128, True, 0, 0.0, "bfloat16"),
+)
+#: the true q/k and v widths of a case whose heads the model zero-pads to
+#: the kernel's head dim (MLA): the padded columns of q, k, v and dO are
+#: zero, as the model's, and the bound counts the true widths
+BWD_WIDTHS = {"mla_train": (192, 128)}
 #: cases of BWD_CASES run with a scale of their own: MLA's 1/sqrt(192) on
 #: heads padded to 256 (the kernel's default would be 1/16)
-BWD_SCALE = {"mla_scaled": 1.0 / math.sqrt(192)}
+BWD_SCALE = {"mla_scaled": 1.0 / math.sqrt(192),
+             "mla_train": 1.0 / math.sqrt(192)}
 #: std of q and k under a softcap: scores of std 16 reach where the cap
 #: bends (tanh(16/30) = 0.49, its derivative 0.76), so dropping the
 #: derivative is a fault the limit can see; unit inputs leave the cap
@@ -3724,16 +3789,21 @@ def bwd_excess(got, want32, dtype: str) -> float:
     return worst
 
 
-def flash_bwd_work(B, S, H, K, D, causal, window, elem):
-    """(FLOPs, bytes) the attention backward needs: 10·D multiply-adds a
-    visible pair a head (S, dP, dV, dK, dQ), 2.5x the forward's; q, k, v,
-    o, dO and lse read once, dq, dk, dv written once.  The bf16 kernels
-    issue twice this product work (P and dS split in two bf16 parts
-    double dV, dK and dQ; S and dP are computed in both the dK/dV and the
-    dQ kernel) on whole 64 x 64 tiles of the band: the bound stays the
+def flash_bwd_work(B, Sq, Skv, H, K, D, causal, window, elem, Dv=None):
+    """(FLOPs, bytes) the attention backward needs: a visible pair a head
+    takes S = q·k, dK and dQ at the q/k width D and dP = dO·v and dV at
+    the value width Dv (D when None): 2·(3·D + 2·Dv) operations, 10·D
+    when they are equal, 2.5x the forward's; q, k, v, o, dO and lse read
+    once, dq, dk, dv written once.  The bf16 kernels issue twice this
+    product work (P and dS split in two bf16 parts double dV, dK and dQ;
+    S and dP are computed in both the dK/dV and the dQ kernel) on whole
+    64 x 64 tiles of the band, at the padded width: the bound stays the
     minimum work."""
-    flops = 2 * 5 * D * B * H * visible_pairs(S, S, causal, window)
-    nbytes = elem * (4 * B * S * H * D + 4 * B * S * K * D) + 4 * B * H * S
+    Dv = D if Dv is None else Dv
+    flops = (2 * (3 * D + 2 * Dv) * B * H
+             * visible_pairs(Sq, Skv, causal, window))
+    nbytes = (elem * 2 * (D + Dv) * (B * Sq * H + B * Skv * K)
+              + 4 * B * H * Sq)
     return flops, nbytes
 
 
@@ -3768,110 +3838,142 @@ def outside_gb() -> float:
     return (total - free - torch.cuda.memory_reserved()) / 1e9
 
 
-def phase_train_kernels():
-    """8a: the two backward kernels against their plain versions."""
+def bwd_case(case, gen, dev, family: bool = False) -> dict:
+    """One case of ``BWD_CASES`` (8a) or ``FAMILY_BWD_CASES`` (8e, with
+    ``family``): ``flash_attention_bwd`` against the plain float32
+    backward of the same inputs (``bwd_excess`` <= 1), the kernel's lse
+    against the plain one, planted faults failing that limit (8e: dK/dV
+    from one query head of a group where K < H, the default scale in
+    MLA's place, else the backward run with its causality flipped), SDPA's
+    backward as the yardstick (8e: no mask, ``is_causal``, MLA on its
+    unpadded widths), timed beside the plain version and the bound ->
+    the case's line, also emitted."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    (name, B, Sq, Skv, H, K, D, causal, window, cap, dtype) = case
+    gen.manual_seed(Sq + D + H)
+    dt = getattr(torch, dtype)
+    std = CAP_STD if cap else 1.0
+    q = (std * torch.randn((B, Sq, H, D), generator=gen, device=dev)).to(dt)
+    k = (std * torch.randn((B, Skv, K, D), generator=gen, device=dev)
+         ).to(dt)
+    v = torch.randn((B, Skv, K, D), generator=gen, device=dev).to(dt)
+    do = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+    Dqk, Dv = BWD_WIDTHS.get(name, (D, D))
+    for t, width in ((q, Dqk), (k, Dqk), (v, Dv), (do, Dv)):
+        t[..., width:] = 0
+    kw = dict(causal=causal, window=window, softcap=cap)
+    if name in BWD_SCALE:
+        kw["scale"] = BWD_SCALE[name]
+    o, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
+    _, lse_plain = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    lse_err = float((lse - lse_plain).abs().max())
+    del lse_plain
+    check(lse_err <= LSE_LIMIT, f"lse {name}: {lse_err} > {LSE_LIMIT}")
+    got = kfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    want32 = ref.flash_attention_bwd_ref(*f32((q, k, v, o)), lse,
+                                         do.float(), **kw)
+    excess = bwd_excess(got, want32, dtype)
+    abs_err = max(float((g.float() - w).abs().max())
+                  for g, w in zip(got, want32))
+    check(math.isfinite(excess) and excess <= 1.0,
+          f"flash_attention_bwd {name}: {excess} x its limit")
+    planted = {}
+    faults = {}
+    if name == "train":
+        faults["oldest_key_dropped"] = lambda: ref.flash_attention_bwd_ref(
+            *f32((q, k, v, o)), lse, do.float(), causal=causal,
+            window=window - 1, softcap=cap)
+    if name == "softcap30":
+        faults["softcap_dropped"] = lambda: ref.flash_attention_bwd_ref(
+            *f32((q, k, v, o)), lse, do.float(), causal=causal,
+            window=window, softcap=0.0)
+    if name in BWD_SCALE:
+        faults["default_scale"] = lambda: ref.flash_attention_bwd_ref(
+            *f32((q, k, v, o)), lse, do.float(), causal=causal,
+            window=window, softcap=cap)
+    if name == "gqa_window32" or (family and K < H):
+        G = H // K
+
+        def one_head():
+            # dK and dV from the first query head of each group only
+            _, dk1, dv1 = ref.flash_attention_bwd_ref(
+                *f32((q[:, :, ::G], k, v, o[:, :, ::G])),
+                lse[:, ::G], do[:, :, ::G].float(), **kw)
+            return want32[0], dk1, dv1
+        faults["gqa_heads_missing"] = one_head
+    elif family and name not in BWD_SCALE:
+        faults["made_noncausal" if causal else "made_causal"] = (
+            lambda: ref.flash_attention_bwd_ref(
+                *f32((q, k, v, o)), lse, do.float(),
+                **dict(kw, causal=not causal)))
+    for fault, run in faults.items():
+        planted[fault] = bwd_excess(run(), want32, dtype)
+        check(planted[fault] > 1.0,
+              f"planted fault {fault} passes: {planted[fault]}")
+    lib_ms = lib_err = None
+    if not cap:  # SDPA has no softcap
+        scale = kw.get("scale", 1.0 / math.sqrt(D))
+        qt, kt, vt = (t[..., :w].transpose(1, 2).detach().requires_grad_()
+                      for t, w in ((q, Dqk), (k, Dqk), (v, Dv)))
+        if family:
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+        else:
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band_mask(Sq, Skv, causal, window,
+                                                dev),
+                scale=scale, enable_gqa=True)
+        dot = do[..., :Dv].transpose(1, 2)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            out, (qt, kt, vt), dot, retain_graph=True)
+        lib_err = max(rel_err(g.transpose(1, 2).float(), w[..., :g.shape[-1]])
+                      for g, w in zip(lib(), want32))
+        check(lib_err <= SDPA_BWD_LIMIT[dtype],
+              f"sdpa backward {name} disagrees: {lib_err}")
+        lib_ms = time_ms(lib)
+        del out, qt, kt, vt
+    del want32
+    ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do, **kw))
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, **kw))
+    flops, nbytes = flash_bwd_work(B, Sq, Skv, H, K, Dqk, causal, window,
+                                   q.element_size(), Dv)
+    bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype ==
+                         "bfloat16" else PEAK_F32_FLOPS)
+    line = dict(case=name, B=B, Sq=Sq, Skv=Skv, H=H, K=K, D=D, Dqk=Dqk,
+                Dv=Dv, causal=causal, window=window, softcap=cap,
+                dtype=dtype, scale=kw.get("scale", 1.0 / math.sqrt(D)),
+                tol=FLASH_TOL[dtype], excess=excess, planted_excess=planted,
+                lse_abs_err=lse_err, max_abs_err=abs_err, ms=ms,
+                plain_ms=plain_ms, sdpa_ms=lib_ms, sdpa_rel_err=lib_err,
+                bound_ms=bound, bound_by=by, bound_share=bound / ms,
+                gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    emit("family_bwd_case" if family else "flash_bwd_case", **line)
+    del q, k, v, o, lse, do, got
+    free_card("bwd_case")
+    return line
+
+
+def phase_train_kernels():
+    """8a: the two backward kernels against their plain versions."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as krg
     dev = torch.device("cuda", 0)
     free_card("train_kernels")
     gen = torch.Generator(device=dev)
     summary = {}
-    for (name, B, S, H, K, D, causal, window, cap, dtype) in BWD_CASES:
-        gen.manual_seed(S + D + H)
-        dt = getattr(torch, dtype)
-        std = CAP_STD if cap else 1.0
-        q = (std * torch.randn((B, S, H, D), generator=gen, device=dev)
-             ).to(dt)
-        k = (std * torch.randn((B, S, K, D), generator=gen, device=dev)
-             ).to(dt)
-        v = torch.randn((B, S, K, D), generator=gen, device=dev).to(dt)
-        do = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
-        kw = dict(causal=causal, window=window, softcap=cap)
-        if name in BWD_SCALE:
-            kw["scale"] = BWD_SCALE[name]
-        o, lse = kfa.flash_attention(q, k, v, return_lse=True, **kw)
-        _, lse_plain = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
-        lse_err = float((lse - lse_plain).abs().max())
-        check(lse_err <= LSE_LIMIT, f"lse {name}: {lse_err} > {LSE_LIMIT}")
-        got = kfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
-        want32 = ref.flash_attention_bwd_ref(*f32((q, k, v, o)), lse,
-                                             do.float(), **kw)
-        excess = bwd_excess(got, want32, dtype)
-        abs_err = max(float((g.float() - w).abs().max())
-                      for g, w in zip(got, want32))
-        check(math.isfinite(excess) and excess <= 1.0,
-              f"flash_attention_bwd {name}: {excess} x its limit")
-        planted = {}
-        faults = {}
-        if name == "train":
-            faults["oldest_key_dropped"] = lambda: ref.flash_attention_bwd_ref(
-                *f32((q, k, v, o)), lse, do.float(), causal=causal,
-                window=window - 1, softcap=cap)
-        if name == "softcap30":
-            faults["softcap_dropped"] = lambda: ref.flash_attention_bwd_ref(
-                *f32((q, k, v, o)), lse, do.float(), causal=causal,
-                window=window, softcap=0.0)
-        if name in BWD_SCALE:
-            faults["default_scale"] = lambda: ref.flash_attention_bwd_ref(
-                *f32((q, k, v, o)), lse, do.float(), causal=causal,
-                window=window, softcap=cap)
-        if name == "gqa_window32":
-            G = H // K
-            def one_head():
-                # dK and dV from the first query head of each group only
-                _, dk1, dv1 = ref.flash_attention_bwd_ref(
-                    *f32((q[:, :, ::G], k, v, o[:, :, ::G])),
-                    lse[:, ::G], do[:, :, ::G].float(), **kw)
-                return want32[0], dk1, dv1
-            faults["gqa_heads_missing"] = one_head
-        for fault, run in faults.items():
-            planted[fault] = bwd_excess(run(), want32, dtype)
-            check(planted[fault] > 1.0,
-                  f"planted fault {fault} passes: {planted[fault]}")
-        lib_ms = lib_err = None
-        if not cap:  # SDPA has no softcap
-            mask = band_mask(S, S, causal, window, dev)
-            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                          for t in (q, k, v))
-            out = F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask,
-                scale=kw.get("scale", 1.0 / math.sqrt(D)), enable_gqa=True)
-            dot = do.transpose(1, 2)
-            lib = lambda: torch.autograd.grad(  # noqa: E731
-                out, (qt, kt, vt), dot, retain_graph=True)
-            lib_err = max(rel_err(g.transpose(1, 2).float(), w)
-                          for g, w in zip(lib(), want32))
-            check(lib_err <= SDPA_BWD_LIMIT[dtype],
-                  f"sdpa backward {name} disagrees: {lib_err}")
-            lib_ms = time_ms(lib)
-            del out, qt, kt, vt
-        del want32
-        ms = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, lse, do,
-                                                     **kw))
-        plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, o, lse, do, **kw))
-        flops, nbytes = flash_bwd_work(B, S, H, K, D, causal, window,
-                                       q.element_size())
-        bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype ==
-                             "bfloat16" else PEAK_F32_FLOPS)
-        emit("flash_bwd_case", case=name, B=B, S=S, H=H, K=K, D=D,
-             causal=causal, window=window, softcap=cap, dtype=dtype,
-             scale=kw.get("scale", 1.0 / math.sqrt(D)),
-             tol=FLASH_TOL[dtype], excess=excess, planted_excess=planted,
-             lse_abs_err=lse_err, max_abs_err=abs_err, ms=ms,
-             plain_ms=plain_ms, sdpa_ms=lib_ms, sdpa_rel_err=lib_err,
-             bound_ms=bound, bound_by=by, gflop=flops / 1e9,
-             mbytes=nbytes / 1e6)
-        if name == "train":
-            summary["flash_attention_bwd"] = dict(
-                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib_ms)
-        del q, k, v, o, lse, do, got
-        free_card("bwd_case")
+    for case in BWD_CASES:
+        line = bwd_case(case, gen, dev)
+        if line["case"] == "train":
+            summary["flash_attention_bwd"] = {
+                n: line[f] for n, f in (
+                    ("max_abs_err", "max_abs_err"), ("ms", "ms"),
+                    ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"),
+                    ("bound_by", "bound_by"), ("library_ms", "sdpa_ms"))}
     for name, B, S, R in SCAN_BWD_CASES:
         gen.manual_seed(S + R + 1)
         la = -0.5 * torch.rand((B, S, R), generator=gen, device=dev)
@@ -3917,6 +4019,37 @@ def phase_train_kernels():
     return summary
 
 
+def spied_step(fn, steps: list, counts, trace_at=None):
+    """``fn`` (a train step) wrapped to append one record to ``steps`` a
+    call: its ms (host clock around the synchronised step), the kernels'
+    launches during it (``counts()`` before and after), its loss,
+    gradient norm and lr; the call numbered ``trace_at`` runs under
+    torch.profiler (``train_profile``)."""
+    def timed(state, batch):
+        out = {}
+
+        def run():
+            out["r"] = fn(state, batch)
+        torch.cuda.synchronize()
+        before = counts()
+        traced = len(steps) == trace_at
+        t0 = time.perf_counter()
+        prof = device_profile(run) if traced else run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        state2, metrics = out["r"]
+        steps.append(dict(
+            ms=ms, traced=traced,
+            launches={n: c - before[n] for n, c in counts().items()},
+            loss=float(metrics["loss"]),
+            grad_norm=float(metrics["grad_norm"]),
+            lr=float(metrics["lr"])))
+        if traced:
+            emit("train_profile", **prof)
+        return state2, metrics
+    return timed
+
+
 def phase_train(trace: bool = False):
     """8b: ``launch.train.train`` on recurrentgemma-2b at full width,
     spied on at its step function for each step's time, launches, loss
@@ -3931,30 +4064,8 @@ def phase_train(trace: bool = False):
 
     def spy_make(*args, **kwargs):
         model, fn = make(*args, **kwargs)
-
-        def timed(state, batch):
-            out = {}
-
-            def run():
-                out["r"] = fn(state, batch)
-            torch.cuda.synchronize()
-            before = counts()
-            traced = trace and len(steps) == TRAIN["steps"] - 1
-            t0 = time.perf_counter()
-            prof = device_profile(run) if traced else run()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            state2, metrics = out["r"]
-            steps.append(dict(
-                ms=ms, traced=traced,
-                launches={n: c - before[n] for n, c in counts().items()},
-                loss=float(metrics["loss"]),
-                grad_norm=float(metrics["grad_norm"]),
-                lr=float(metrics["lr"])))
-            if traced:
-                emit("train_profile", **prof)
-            return state2, metrics
-        return model, timed
+        return model, spied_step(fn, steps, counts,
+                                 TRAIN["steps"] - 1 if trace else None)
 
     resident = free_card("train")
     torch.cuda.reset_peak_memory_stats()
@@ -4116,6 +4227,409 @@ def phase_population():
     return launches
 
 
+# ------------------------------------------------------- phases 8e-8g
+#: phase 8f: arch -> (depth, seq) of the gradient hold at full width,
+#: batch 1 from ``concrete_inputs``: granite-moe's first two layers;
+#: deepseek's dense layer and one MoE layer; whisper's decoder at depth 2
+#: over its 24 encoder layers (1536 frames); command-r at seq 1024 (its
+#: tied 3.15 B table and two 1.57 B layers are ~25 GB in float32, and as
+#: much again in float32 gradients); llava's 2304 image and 1792 text
+#: positions; xlstm-125m whole at seq 512, two 256-step mLSTM chunks
+#: (its sLSTM loop launches ~25 kernels a time step a layer, forward
+#: twice and backward once: 57 s for the hold's five runs at seq 1024)
+FAMILY_HOLDS = {"granite-moe-3b-a800m": (2, 4096),
+                "deepseek-v2-lite-16b": (2, 4096),
+                "whisper-medium": (2, 4096),
+                "command-r-plus-104b": (2, 1024),
+                "llava-next-34b": (2, 4096),
+                "xlstm-125m": (12, 512)}
+#: phase 8g: arch -> (layers trained, None: all; seq), batch 1, at 16
+#: bytes of state a parameter (float32 masters, m and v; bf16 weights and
+#: gradients): granite-moe whole (3.30 B, ~53 GB); deepseek at 4 of 27
+#: layers (~2.25 B, ~36 GB; its MoE layers are ~0.585 B each, ~250 GB
+#: at full depth); whisper whole (0.76 B) over 1536 frames; llava at 4 of
+#: 60 layers (~3.15 B, ~50 GB) over 2304 image and 1792 text positions;
+#: xlstm whole at seq 1024 (cut from 4096: its step time is linear in
+#: the sLSTM loop's launches).  command-r-plus-104b takes no step: its
+#: tied 3.15 B table and one 1.57 B layer are 75.5 GB of state before
+#: any activation, past one 80 GB card at any depth (8f holds its
+#: gradient)
+FAMILY_TRAIN = {"granite-moe-3b-a800m": (None, 4096),
+                "deepseek-v2-lite-16b": (4, 4096),
+                "whisper-medium": (None, 4096),
+                "llava-next-34b": (4, 4096),
+                "xlstm-125m": (None, 1024)}
+FAMILY_TRAIN_STEPS = 3
+#: 8f: a gradient leaf whose float32 norm is below ZERO_LEAF of the
+#: largest leaf's has an exact gradient of 0 -- a key projection's bias
+#: (whisper's), whose gradient the softmax cancels: what any path
+#: computes there is rounding, and no ratio of two paths' roundings is a
+#: limit.  Such a leaf is held to within ZERO_LEAF_TOL (bf16's step) of
+#: the largest leaf's norm instead; the rest as 8c holds.  On the H100
+#: whisper's 28 key biases were 8.1e-10 of the largest leaf or less, and
+#: the smallest other leaf of any family 3.6e-5 of it
+ZERO_LEAF = 1e-7
+ZERO_LEAF_TOL = 2.0 ** -8
+FAMILY_TRAIN_WARMUP = 2
+
+
+def attention_layers(cfg) -> int:
+    """Attention calls a forward of ``cfg`` makes: one an attention layer,
+    two a decoder layer of an encoder-decoder (self and cross), one an
+    encoder layer."""
+    from repro_torch.models.common import ATTN, LOCAL_ATTN
+    from repro_torch.models.model import XATTN, build_specs
+    return (sum(2 if s.kind == XATTN else int(s.kind in (ATTN, LOCAL_ATTN))
+                for s in build_specs(cfg)) + cfg.encoder_layers)
+
+
+def step_launches(cfg) -> dict:
+    """The LM kernels' launches a train step of ``cfg``: every attention
+    call's forward twice (remat recomputes it) and its backward once."""
+    n = attention_layers(cfg)
+    want = {name: 0 for name in lm_counters()}
+    want.update(flash_attention=(1 if cfg.remat == "none" else 2) * n,
+                flash_attention_bwd=n)
+    return want
+
+
+def flipped_share(a, b, n_experts: int) -> float:
+    """Share of (token, choice) pairs of ``a`` whose expert is not among
+    ``b``'s choices for that token."""
+    import torch.nn.functional as F
+    na = F.one_hot(a, n_experts).sum(-2)
+    nb = F.one_hot(b, n_experts).sum(-2)
+    return float((na - nb).clamp(min=0).sum()) / a.numel()
+
+
+class TopKReplay:
+    """``moe._top_k`` for 8f: records the router's choices of the kernel
+    run, call by call (remat's recomputation included), then in each
+    later run replays them in the same order, their weights gathered
+    from that run's own probabilities, and records the share of that
+    run's own choices that differ from the replayed ones."""
+
+    def __init__(self):
+        self.recorded, self.flips, self.i = [], None, 0
+
+    def replay(self) -> list:
+        self.i, self.flips = 0, []
+        return self.flips
+
+    def __call__(self, probs, k):
+        w, idx = torch.topk(probs, k, dim=-1)
+        if self.flips is None:
+            self.recorded.append(idx)
+            return w, idx
+        rec = self.recorded[self.i]
+        self.i += 1
+        self.flips.append(flipped_share(idx, rec, probs.shape[-1]))
+        return probs.gather(-1, rec), rec
+
+
+def family_fault(cfg):
+    """8f's planted fault for ``cfg``'s family -> (name, [(module, {name:
+    swap})], params from the bf16 weights or None)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    bwd, fa = kfa.flash_attention_bwd, ops.flash_attention
+    if cfg.family == "encdec":
+        def cross_causal(q, k, v, o, lse, do, **kw):
+            # cross-attention's backward (its Sq != Skv) run causal
+            if q.shape[1] != k.shape[1]:
+                kw = dict(kw, causal=True)
+            return bwd(q, k, v, o, lse, do, **kw)
+        return ("cross_attention_bwd_causal",
+                [(kfa, dict(flash_attention_bwd=cross_causal))], None)
+    if cfg.family == "vlm":
+        n = cfg.n_img_tokens
+
+        def prefix_dropped(q, k, v, **kw):
+            return torch.cat([fa(q[:, :n], k[:, :n], v[:, :n], **kw),
+                              fa(q[:, n:], k[:, n:], v[:, n:], **kw)], 1)
+        return ("prefix_dropped_from_kv",
+                [(ops, dict(flash_attention=prefix_dropped))], None)
+    if cfg.family == "ssm":
+        def r_zeroed(p16):
+            return dict(p16, layers=[
+                dict(lp, slstm=dict(lp["slstm"], r=torch.zeros_like(
+                    lp["slstm"]["r"]))) if "slstm" in lp else lp
+                for lp in p16["layers"]])
+        return "slstm_r_zeroed", [], r_zeroed
+    if cfg.mla:
+        def default_scale(*a, **kw):
+            return bwd(*a, **dict(kw, scale=None))
+        return ("bwd_default_scale",
+                [(kfa, dict(flash_attention_bwd=default_scale))], None)
+
+    def heads_missing(q, k, v, o, lse, do, **kw):
+        # dK and dV from the first query head of each group only
+        G = q.shape[2] // k.shape[2]
+        dq, _, _ = bwd(q, k, v, o, lse, do, **kw)
+        _, dk, dv = bwd(q[:, :, ::G], k, v, o[:, :, ::G], lse[:, ::G],
+                        do[:, :, ::G], **kw)
+        return dq, dk, dv
+    return ("bwd_gqa_heads_missing",
+            [(kfa, dict(flash_attention_bwd=heads_missing))], None)
+
+
+def family_hold(arch: str, depth: int, seq: int) -> dict:
+    """8f: one ``loss_and_grads`` of ``arch`` at full width and depth
+    ``depth`` (float32 weights from seed 1, a ``concrete_inputs`` batch of
+    one ``seq`` sequence) in bf16 through the kernels, through their
+    plain versions (``flash_attention`` and ``flash_attention_bwd``
+    swapped at the wrappers: the same function, the backward's D from the
+    stored bf16 output), through the dense oracle differentiated by
+    autograd (``ops.flash_attention`` swapped, as 8c; reported, not a
+    limit), once with the family's planted fault on the kernel path, and
+    in float32 through the dense oracle.  The kernel run launches
+    ``step_launches``; each gradient leaf of the kernel run is no further
+    from float32 than ``GRAD_FACTOR`` times the plain versions' run (a
+    leaf whose exact gradient is 0, ``ZERO_LEAF``: within
+    ``ZERO_LEAF_TOL`` of the largest leaf), the loss ``LOSS_FACTOR``
+    times (floor ``LOSS_FLOOR``); the fault fails one of them.  An MoE
+    family's later runs replay the kernel run's router choices
+    (``TopKReplay``), so the hold measures attention and dispatch, not
+    routing flips, which are reported.  The bf16 runs' gradients wait on
+    the host while the float32 run holds the card."""
+    from repro_torch.configs import concrete_inputs
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as S
+    from repro_torch.models import LM, ShapeSpec
+    from repro_torch.models import moe as MM
+    from repro_torch.models.model import tensors
+    dev = torch.device("cuda", 0)
+    free_card(f"family_hold {arch}")
+    t0 = time.perf_counter()
+    cfg = served_config(arch, depth)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = LM(cfg).init(seed=1, device=dev)
+    batch = concrete_inputs(cfg, ShapeSpec("train", seq, 1, "train"),
+                            seed=0, device=dev)
+    counters = lm_counters()
+    topk = TopKReplay()
+    plain = (kfa, dict(flash_attention=ref.flash_attention_ref,
+                       flash_attention_bwd=ref.flash_attention_bwd_ref))
+    dense = (ops, dict(flash_attention=ref.flash_attention_ref))
+
+    def run(c, params, swaps=(), host=True):
+        with contextlib.ExitStack() as stack:
+            for mod, swap in [(MM, dict(_top_k=topk)), *swaps]:
+                stack.enter_context(patched(mod, **swap))
+            loss, _, g = S.loss_and_grads(LM(c), params, batch)
+        torch.cuda.synchronize()
+        return float(loss), [t.cpu() if host else t for t in tensors(g)]
+
+    p16 = S.cast_params(p32, cfg.compute_dtype)
+    for c in counters.values():
+        c.reset()
+    runs = {"kernel": run(cfg, p16)}
+    launches = {n: c.count for n, c in counters.items()}
+    want = step_launches(cfg)
+    check(launches == want, f"{arch} hold: launches {launches}, not {want}")
+    flips = {}
+    for name, sw in (("plain", plain), ("dense", dense)):
+        flips[name] = topk.replay()
+        runs[name] = run(cfg, p16, [sw])
+    check(all(c.count == launches[n] for n, c in counters.items()),
+          f"{arch} hold: the plain runs launched kernels")
+    fault, swaps, make_params = family_fault(cfg)
+    topk.replay()
+    runs["fault"] = run(cfg, p16 if make_params is None
+                        else make_params(p16), swaps)
+    del p16
+    flips["f32"] = topk.replay()
+    loss_32, g_32 = run(cfg32, p32, [dense], host=False)
+    del p32
+    norm = lambda a: float(torch.linalg.vector_norm(a.float()))  # noqa
+    sizes = [norm(c) for c in g_32]
+    # per leaf, each run's distance from float32 relative to the float32
+    # leaf's norm, or for a leaf whose exact gradient is 0 (ZERO_LEAF) to
+    # the largest leaf's
+    scale = [c if c >= ZERO_LEAF * max(sizes) else max(sizes)
+             for c in sizes]
+    zero = [i for i, (c, sc) in enumerate(zip(sizes, scale)) if c < sc]
+    err = {name: [norm(g.to(dev).float() - c) / max(sc, 1e-30)
+                  for g, c, sc in zip(grads, g_32, scale)]
+           for name, (_, grads) in runs.items()}
+    losses = {name: loss for name, (loss, _) in runs.items()}
+    del runs, g_32
+
+    def loss_ok(lk):
+        return abs(lk - loss_32) <= LOSS_FACTOR * max(
+            abs(losses["plain"] - loss_32), LOSS_FLOOR)
+
+    def bad_leaves(name):
+        return [i for i, (e, pe) in enumerate(zip(err[name], err["plain"]))
+                if not (math.isfinite(e) and e <= (
+                    ZERO_LEAF_TOL if i in zero else GRAD_FACTOR * pe))]
+
+    def worst(name, over):
+        return max(e / max(pe, 1e-30) for i, (e, pe) in
+                   enumerate(zip(err[name], err[over])) if i not in zero)
+
+    failed = bad_leaves("kernel")
+    caught = bad_leaves("fault")
+    line = dict(
+        arch=arch, depth=depth, seq=seq, encoder_layers=cfg.encoder_layers,
+        n_img_tokens=cfg.n_img_tokens, launches=launches,
+        attention_layers=attention_layers(cfg), loss_f32=loss_32,
+        **{f"loss_{n}": v for n, v in losses.items()}, leaves=len(sizes),
+        **{f"grad_rel_err_{n}_vs_f32": err[n]
+           for n in ("kernel", "plain", "dense")},
+        worst_leaf_ratio=worst("kernel", "plain"),
+        worst_leaf_ratio_vs_dense=worst("kernel", "dense"),
+        failed_leaves=failed, zero_leaves=zero,
+        leaf_norm_over_largest=[c / max(sizes) for c in sizes],
+        router_calls=len(topk.recorded),
+        **{f"flipped_share_{n}_vs_kernel": f for n, f in flips.items()},
+        planted_fault=dict(name=fault, loss=losses["fault"],
+                           leaves_rejected=len(caught),
+                           worst_leaf_ratio=worst("fault", "plain"),
+                           over_limit=worst("fault", "plain") / GRAD_FACTOR,
+                           loss_rejects=not loss_ok(losses["fault"])),
+        hold_s=time.perf_counter() - t0)
+    emit("family_hold", **line)
+    check(not failed, f"{arch} hold: gradient leaves {failed} past "
+          f"{GRAD_FACTOR} x the plain versions' distance from float32 "
+          f"(zero leaves {zero}: {ZERO_LEAF_TOL} of the largest)")
+    check(loss_ok(losses["kernel"]), f"{arch} hold loss: {losses}, f32 "
+          f"{loss_32}")
+    check(caught or not loss_ok(losses["fault"]),
+          f"{arch}: planted fault {fault} passes: {line['planted_fault']}")
+    del batch
+    free_card(f"family_hold {arch} done")
+    return line
+
+
+def phase_family_bwd():
+    """8e: ``flash_attention_bwd`` at the seven train layouts
+    (``FAMILY_BWD_CASES``, ``bwd_case``) -> {layout: its error, times,
+    bound and planted faults}."""
+    dev = torch.device("cuda", 0)
+    free_card("family_bwd")
+    gen = torch.Generator(device=dev)
+    layouts = {}
+    for case in FAMILY_BWD_CASES:
+        line = bwd_case(case, gen, dev, family=True)
+        layouts[line["case"]] = dict(
+            excess=line["excess"], max_abs_err=line["max_abs_err"],
+            ms=line["ms"], plain_ms=line["plain_ms"],
+            bound_ms=line["bound_ms"], bound_by=line["bound_by"],
+            library_ms=line["sdpa_ms"], planted=line["planted_excess"])
+    return layouts
+
+
+def phase_family_parity():
+    """8f: ``family_hold`` for each family of ``FAMILY_HOLDS``."""
+    for arch, (depth, seq) in FAMILY_HOLDS.items():
+        family_hold(arch, depth, seq)
+
+
+def family_train(arch: str, layers, seq: int) -> dict:
+    """8g: ``FAMILY_TRAIN_STEPS`` AdamW steps of ``arch`` at full width
+    (``layers`` of its published depth, None: all), bf16 compute, float32
+    masters, remat "full", batch 1 x ``seq``: a token-only family through
+    ``launch.train.train`` (its config lookup answering the cut), an
+    encoder-decoder or VLM through ``launch.steps.make_train_step`` on
+    ``concrete_inputs`` batches (stub frames or patch embeddings), each
+    step spied on (``spied_step``): ``step_launches`` a step, finite
+    losses and gradient norms -> the line: ms a step, tokens a second,
+    peak memory."""
+    from repro_torch.configs import concrete_inputs
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as tr
+    from repro_torch.models import ShapeSpec
+    from repro_torch.models.model import tensors
+    from repro_torch.optim import AdamWConfig, linear_warmup_cosine
+    dev = torch.device("cuda", 0)
+    cfg = served_config(arch, layers)
+    published = served_config(arch, None).n_layers
+    if layers is not None:
+        print(f"chip_smoke: {arch} trained at {layers} of its {published} "
+              "layers (full width)", flush=True)
+    counters = lm_counters()
+    counts = lambda: {n: c.count for n, c in counters.items()}  # noqa: E731
+    steps, lines = [], []
+    resident = free_card(f"family_train {arch}")
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    if cfg.family in ("encdec", "vlm"):
+        entry = "launch.steps.make_train_step"
+        _, fn = S.make_train_step(cfg, AdamWConfig(lr=3e-4),
+                                  linear_warmup_cosine(3e-4,
+                                                       FAMILY_TRAIN_WARMUP,
+                                                       FAMILY_TRAIN_STEPS))
+        step = spied_step(fn, steps, counts)
+        state = S.init_train_state(cfg, 0, dev)
+        shape = ShapeSpec("train", seq, 1, "train")
+        for t in range(FAMILY_TRAIN_STEPS):
+            batch = concrete_inputs(cfg, shape, seed=t, device=dev)
+            state, _ = step(state, batch)
+        inputs = {k: list(v.shape) for k, v in batch.items()}
+        params = sum(t.numel() for t in tensors(state["params"]))
+        del state, batch
+    else:
+        entry = "launch.train.train"
+        make = tr.make_accum_train_step
+
+        def spy_make(*args, **kwargs):
+            model, fn = make(*args, **kwargs)
+            return model, spied_step(fn, steps, counts)
+
+        with patched(tr, make_accum_train_step=spy_make,
+                     get_config=lambda name: cfg):
+            last = tr.train(arch, FAMILY_TRAIN_STEPS, 1, seq, reduced=False,
+                            warmup=FAMILY_TRAIN_WARMUP, seed=0, log_every=1,
+                            log=lines.append)
+        check(math.isfinite(last), f"{arch}: train returned {last}")
+        inputs = {"tokens": [1, seq], "labels": [1, seq]}
+        params = cfg.param_count()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = counts()
+    want = step_launches(cfg)
+    check(len(steps) == FAMILY_TRAIN_STEPS, f"{arch}: {len(steps)} steps")
+    for i, st in enumerate(steps):
+        check(st["launches"] == want,
+              f"{arch} train step {i} launches {st['launches']}, not {want}")
+        check(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]),
+              f"{arch} train step {i}: loss {st['loss']}, grad norm "
+              f"{st['grad_norm']}")
+    warm = [st["ms"] for st in steps[1:]]
+    tokens = math.prod(inputs["tokens"])
+    positions = tokens + cfg.n_img_tokens
+    mean_s = sum(warm) / len(warm) / 1e3
+    free_card(f"family_train {arch} done")
+    return dict(arch=arch, entry=entry, layers=cfg.n_layers,
+                published_layers=published,
+                encoder_layers=cfg.encoder_layers, params=params,
+                seq=seq, inputs=inputs, steps=FAMILY_TRAIN_STEPS,
+                wall_s=wall, step_ms=[st["ms"] for st in steps],
+                warm_ms=warm, tokens_per_s=tokens / mean_s,
+                positions_per_s=positions / mean_s, peak_memory_gb=peak,
+                resident_before_gb=resident,
+                losses=[st["loss"] for st in steps],
+                grad_norms=[st["grad_norm"] for st in steps],
+                lrs=[st["lr"] for st in steps], launches=launches,
+                step_launches=steps[0]["launches"], log=lines)
+
+
+def phase_family_train():
+    """8g: ``family_train`` for each family of ``FAMILY_TRAIN`` -> the LM
+    kernels' launches summed over them (counters zeroed before each)."""
+    total = {n: 0 for n in lm_counters()}
+    for arch, (layers, seq) in FAMILY_TRAIN.items():
+        line = family_train(arch, layers, seq)
+        emit("family_train", **line)
+        for n in total:
+            total[n] += line["launches"][n]
+    return total
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -4168,12 +4682,20 @@ def main() -> int:
         phase_population()
         print(card_line())
         return 0
+    if sys.argv[1:] == ["--train-families"]:
+        phase_card()
+        phase_family_bwd()
+        phase_family_parity()
+        phase_family_train()
+        print(card_line())
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
     card = phase_card()
-    # phase 8 first: the population needs ~65 GB of an 80 GB card, and
+    # phase 8 first: the population needs ~65 GB of an 80 GB card (8g's
+    # granite-moe-3b-a800m ~70 GB), and
     # the later phases leave ~10-12 GB of it held outside PyTorch's
     # allocator (a cuBLAS and a cuSOLVER handle for each thread that ran
     # the GP on the card at once: phase_thread_memory, card_memory
@@ -4182,6 +4704,9 @@ def main() -> int:
     train = phase_train()
     phase_train_parity()
     population = phase_population()
+    family_layouts = phase_family_bwd()
+    phase_family_parity()
+    families = phase_family_train()
     free_card("after phase 8")
     summary.update(phase_kernels())
     phase_gp_parity()
@@ -4243,7 +4768,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:97",
              launches=train["flash_attention_bwd"],
-             **summary["flash_attention_bwd"]),
+             **summary["flash_attention_bwd"], layouts=family_layouts),
         dict(name="rglru_scan_bwd", route="cuda",
              source="src/repro_torch/kernels/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:40",
@@ -4258,6 +4783,7 @@ def main() -> int:
         k["moe_serve_launches"] = moe.get(k["name"], 0)
         k["encdec_serve_launches"] = encdec.get(k["name"], 0)
         k["vlm_serve_launches"] = vlm.get(k["name"], 0)
+        k["train_families_launches"] = families.get(k["name"], 0)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

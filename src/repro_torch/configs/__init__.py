@@ -1,3 +1,4 @@
-from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.configs.registry import (concrete_inputs, get_config,
+                                          input_specs, list_archs)
 
-__all__ = ["get_config", "list_archs"]
+__all__ = ["concrete_inputs", "get_config", "input_specs", "list_archs"]

@@ -3,12 +3,28 @@
 xLSTM), in the reference's order, each config a field-for-field copy of
 the reference's.  An unknown name raises ``KeyError``, as the
 reference's ``get_config`` does.
+
+``input_specs(cfg, shape)`` names every model input of a (architecture x
+input-shape) cell with its shape and torch dtype, as the reference's
+does with ``jax.ShapeDtypeStruct``s; ``concrete_inputs`` draws a real
+batch of those shapes from a numpy seed, number for number the
+reference's, on a device (the card by default).  The reference's
+``cache_specs`` is left out: it shapes the dry run's decode cache, which
+belongs to the XLA tooling the port has not ported (ROADMAP.md §1).
 """
 from __future__ import annotations
 
 import importlib
+from typing import Dict, Tuple
 
-from repro_torch.models.common import ModelConfig
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models.common import SHAPES, ModelConfig, ShapeSpec
+
+#: an input's (shape, dtype)
+Spec = Tuple[Tuple[int, ...], torch.dtype]
 
 _MODULES = {
     "phi3-medium-14b": "phi3_medium_14b",
@@ -33,3 +49,54 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; known: {list(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def _token_specs(batch: int, seq: int) -> Dict[str, Spec]:
+    return {"tokens": ((batch, seq), torch.int32),
+            "labels": ((batch, seq), torch.int32)}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Spec]:
+    """Model inputs for a cell -> {name: (shape, dtype)}.  train and
+    prefill give a batch (a VLM's text is S - n_img tokens beside its
+    ``img_embeds`` (B, n_img, d); an encoder-decoder's ``frames`` are (B,
+    encoder_seq, d); both in the compute dtype; prefill has no
+    ``labels``); decode gives {"tokens": (B,)}."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = cfg.compute_dtype
+    if shape.kind == "decode":
+        return {"tokens": ((B,), torch.int32)}
+    if cfg.family == "vlm":
+        specs = _token_specs(B, S - cfg.n_img_tokens)
+        specs["img_embeds"] = ((B, cfg.n_img_tokens, cfg.d_model), dt)
+    elif cfg.family == "encdec":
+        specs = _token_specs(B, S)
+        specs["frames"] = ((B, cfg.encoder_seq, cfg.d_model), dt)
+    else:
+        specs = _token_specs(B, S)
+    if shape.kind == "prefill":
+        specs.pop("labels")
+    return specs
+
+
+def concrete_inputs(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A real batch of ``input_specs(cfg, shape)`` on ``device`` (the CUDA
+    card by default): from ``np.random.default_rng(seed)``, in the specs'
+    order, integers uniform over the vocabulary and floats standard
+    normal (drawn in float64, rounded to float32, then cast, as the
+    reference's ``jnp.asarray`` does), the reference's numbers."""
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, (dims, dtype) in input_specs(cfg, shape).items():
+        if dtype.is_floating_point:
+            a = rng.normal(0, 1, dims).astype(np.float32)
+        else:
+            a = rng.integers(0, cfg.vocab_size, dims).astype(np.int32)
+        out[name] = torch.from_numpy(a).to(device=dev, dtype=dtype)
+    return out
+
+
+__all__ = ["list_archs", "get_config", "input_specs", "concrete_inputs",
+           "SHAPES"]

@@ -128,6 +128,11 @@ class ModelConfig:
             groups.append((tuple(pat[len(p) * full:]), 1))
         return tuple(groups)
 
+    def is_subquadratic(self) -> bool:
+        """True when no layer requires a full-length attention cache."""
+        return all(k in (RGLRU, MLSTM, SLSTM, LOCAL_ATTN)
+                   for k in self.pattern)
+
     # -------------------------------------------------------------- counts
     def param_count(self) -> int:
         """Exact parameter count of the port's ``LM.init`` (allocates
@@ -188,3 +193,12 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a (arch, shape) cell is runnable; else the documented skip
+    (the reference's words)."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic():
+        return False, ("skip: pure full-attention arch has no sub-quadratic "
+                       "mode for 524k context (see DESIGN.md)")
+    return True, ""

@@ -169,7 +169,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     valid = labels >= 0
     if mask is not None:
         valid = valid & (mask > 0)
-    safe = torch.where(valid, labels, 0)
+    safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
     nll = (logz - gold) * valid

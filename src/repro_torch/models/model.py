@@ -27,9 +27,8 @@ nothing, so the port keeps one flat list of layers in stack order
 ``models/convert.py`` unstacks reference weights (and optimizer state)
 into it along the same groups (``model_groups``); the encoder's layers
 are a list of their own (``params["encoder"]["layers"]``).  The card
-serves every family; the training of the MoE, encoder-decoder,
-parallel-block, VLM and xLSTM models is held against the reference on
-the CPU only.
+serves and trains every family; the training is held against the
+reference on the CPU, and on the card against the plain path.
 
 API (functions of plain dicts of tensors; ``torch.func`` composes with
 ``forward`` and ``loss`` when ``cfg.remat`` is "none"):

@@ -50,13 +50,22 @@ def init_moe(init: L.Init, cfg: ModelConfig) -> Params:
     return p
 
 
+def _top_k(probs: torch.Tensor, k: int):
+    """The router's choices: each token's k largest probabilities and
+    their experts (B,S,k).  ``torch.topk`` promises no order among ties
+    on the card, where ``jax.lax.top_k`` puts the lower index first; a
+    check that holds one routed run against another replays a run's
+    choices here."""
+    return torch.topk(probs, k, dim=-1)
+
+
 def _router(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """-> (weights (B,S,k) in x's dtype, expert indices (B,S,k), the
     Switch load-balance loss, float32 scalar).  Logits in x's dtype,
     softmax in float32; the top k weights renormalised (floor 1e-9)."""
     logits = torch.matmul(x, p["router"]["w"].to(x.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
-    w, idx = torch.topk(probs, cfg.top_k, dim=-1)
+    w, idx = _top_k(probs, cfg.top_k)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # load-balance loss, per sequence, then averaged over the batch
     E = cfg.n_experts

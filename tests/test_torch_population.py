@@ -16,6 +16,20 @@ largest learning rate a step: AdamW's update m̂/(√v̂ + ε) normalizes each
 element, so where a gradient element is within rounding of 0 its update
 can move by a fair share of lr (the largest seen, 1.7e-5 after two
 steps at lr 3e-3, is 0.3% of lr a step).
+
+xlstm-125m has entries whose gradient is 0 but for rounding: an sLSTM's
+input-gate bias (``w_in.b``) cancels between its cell and its normalizer
+state, and a few entries of other leaves sum to within a few ε of 0 at a
+step.  There the two packages' float32 roundings differ by more than the
+entry's size, ε = 1e-8 sets the update's scale, and each package moves
+the entry by up to lr a step on its own (7.6e-5 after two steps at lr
+3e-3).  So its case holds those entries -- a gradient below
+``NEAR_EPS`` ε at a step in both packages, read from the first moments
+-- only to AdamW's largest move, counts them (0.15% of the entries;
+bound ``NEAR_EPS_SHARE``), and holds every other entry to the tolerance
+above.  ``test_population_step_agrees_in_float64`` shows the cause: in
+float64 the two packages' parameters agree to 1e-10 after the same
+steps.
 """
 import dataclasses
 
@@ -24,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro.configs.registry import get_config as jget_config
 from repro.core import vmap_trials as JV
@@ -57,11 +72,36 @@ def _data(vocab, seq=16):
     return it
 
 
-@pytest.mark.parametrize("arch,seq", [("recurrentgemma-2b", 40),
-                                      ("granite-8b", 16)])
-def test_population_step_matches_reference(arch, seq):
-    jc = jget_config(arch).reduced()
-    tc = get_config(arch).reduced()
+#: an entry is held as near ε when its gradient is below NEAR_EPS·ε at a
+#: step in both packages; at most NEAR_EPS_SHARE of the entries may be
+NEAR_EPS = 10
+NEAR_EPS_SHARE = 5e-3
+#: the cases held that way (module docstring)
+EPS_HELD = ("xlstm-125m",)
+
+
+def _step_grads(m_hist, b1):
+    """Each step's (clipped) gradient of every leaf from the first moments
+    after each step: g_t = (m_t - b1·m_(t-1)) / (1 - b1), m_0 = 0."""
+    return [[(m - b1 * p) / (1 - b1) for m, p in zip(new, old)]
+            for old, new in zip(m_hist, m_hist[1:])]
+
+
+def _near_eps(port_m, ref_m, cfg):
+    """Per leaf: the entries whose gradient is below NEAR_EPS·ε at some
+    step in both packages."""
+    lim = NEAR_EPS * cfg.eps
+    near = None
+    for gp, gr in zip(_step_grads(port_m, cfg.b1), _step_grads(ref_m, cfg.b1)):
+        now = [(a.abs() < lim) & (b.abs() < lim) for a, b in zip(gp, gr)]
+        near = now if near is None else [a | b for a, b in zip(near, now)]
+    return near
+
+
+def _population_run(arch, seq, jc, tc, steps=2):
+    """``steps`` population steps of both packages from the reference's
+    stacked state -> (the port's state, the reference's converted, the
+    first moments after each step of each, the metrics of each step)."""
     jtrainer = JV.PopulationTrainer(jc, JAdamWConfig())
     jstate = jtrainer.init_states(ASSIGNS)
     jlr, jwd = jtrainer.hp_vectors(ASSIGNS)
@@ -70,7 +110,9 @@ def test_population_step_matches_reference(arch, seq):
     lr, wd = (torch.from_numpy(np.array(a)) for a in (jlr, jwd))
     _, tstep = V.make_population_step(tc, AdamWConfig())
     P = len(ASSIGNS)
-    for t in range(2):
+    zeros = [torch.zeros_like(m) for m in tensors(tstate["opt"]["m"])]
+    port_m, ref_m, metrics = [zeros], [zeros], []
+    for t in range(steps):
         batch = _data(jc.vocab_size, seq)(t)
         pbatch = {k: np.broadcast_to(v[None], (P,) + v.shape)
                   for k, v in batch.items()}
@@ -78,20 +120,101 @@ def test_population_step_matches_reference(arch, seq):
                                    jlr, jwd)
         tstate, tm = tstep(tstate, {k: torch.from_numpy(np.array(v)).long()
                                     for k, v in pbatch.items()}, lr, wd)
+        port_m.append([m.clone() for m in tensors(tstate["opt"]["m"])])
+        ref_m.append(list(tensors(train_state_from_reference(
+            tc, jax.tree.map(np.asarray, jstate),
+            population=True)["opt"]["m"])))
+        metrics.append((tm, jm))
+    want = train_state_from_reference(tc, jax.tree.map(np.asarray, jstate),
+                                      population=True)
+    return tstate, want, port_m, ref_m, metrics
+
+
+@pytest.mark.parametrize("arch,seq", [("recurrentgemma-2b", 40),
+                                      ("granite-8b", 16),
+                                      ("xlstm-125m", 16)])
+def test_population_step_matches_reference(arch, seq):
+    jc = jget_config(arch).reduced()
+    tc = get_config(arch).reduced()
+    tstate, want, port_m, ref_m, metrics = _population_run(arch, seq, jc, tc)
+    for tm, jm in metrics:
         np.testing.assert_allclose(tm["loss"].numpy(), np.asarray(jm["loss"]),
                                    rtol=1e-5)
         np.testing.assert_allclose(tm["grad_norm"].numpy(),
                                    np.asarray(jm["grad_norm"]), rtol=1e-4)
-    want = train_state_from_reference(tc, jax.tree.map(np.asarray, jstate),
-                                      population=True)
-    lr_step = 1e-2 * max(a["lr"] for a in ASSIGNS) * 2
-    for tree, atol in (("params", lr_step), ("m", 1e-5), ("v", 1e-5)):
-        got = tstate[tree] if tree == "params" else tstate["opt"][tree]
-        ref = want[tree] if tree == "params" else want["opt"][tree]
-        for g, r in zip(tensors(got), tensors(ref)):
+    steps = len(metrics)
+    lr_max = max(a["lr"] for a in ASSIGNS)
+    lr_step = 1e-2 * lr_max * 2
+    for tree, atol in (("m", 1e-5), ("v", 1e-5)):
+        for g, r in zip(tensors(tstate["opt"][tree]),
+                        tensors(want["opt"][tree])):
             np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
                                        atol=atol)
-    assert tstate["opt"]["step"].tolist() == [2] * P
+    got, ref = list(tensors(tstate["params"])), list(tensors(want["params"]))
+    if arch in EPS_HELD:
+        near = _near_eps(port_m, ref_m, AdamWConfig())
+        n_near = sum(int(n.sum()) for n in near)
+        assert n_near <= NEAR_EPS_SHARE * sum(g.numel() for g in got), n_near
+        # each package moves such an entry by at most ~lr a step (|m̂|/√v̂
+        # <= 1.002 over two steps) plus its weight decay
+        move = 2 * steps * lr_max * 1.01
+        for g, r, n in zip(got, ref, near):
+            d = (g - r).abs().numpy()
+            assert d[n.numpy()].max(initial=0.0) <= move
+            assert d[~n.numpy()].max(initial=0.0) <= lr_step
+    else:
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
+                                       atol=lr_step)
+    assert tstate["opt"]["step"].tolist() == [2] * len(ASSIGNS)
+
+
+class _Float64(TorchFunctionMode):
+    """Every float32 the port asks for (``Tensor.float``, a ``dtype``
+    argument) made float64: the port computes in float32 in its norms,
+    cross entropy, xLSTM cells and AdamW moments whatever the config's
+    dtype, as the reference does."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is torch.Tensor.float:
+            return args[0].to(torch.float64)
+        kwargs = {k: torch.float64 if v is torch.float32 else v
+                  for k, v in (kwargs or {}).items()}
+        args = tuple(torch.float64 if a is torch.float32 else a
+                     for a in args)
+        return func(*args, **kwargs)
+
+
+def test_population_step_agrees_in_float64(monkeypatch):
+    """The xlstm case above in float64 on both sides (the reference under
+    ``jax_enable_x64`` with its float32 made float64, the port under
+    ``_Float64``): every parameter agrees to 1e-10 (float64 rounding of
+    O(1) sums is ~1e-16; a fault would show at the size of an update,
+    ~1e-3), the losses and gradient norms to 1e-12.  So the float32
+    case's entries held as near ε move apart by rounding, not a fault."""
+    jax.config.update("jax_enable_x64", True)
+    try:
+        monkeypatch.setattr(jnp, "float32", jnp.float64)
+        jc = jget_config("xlstm-125m").reduced(dtype="float64",
+                                               param_dtype="float64")
+        tc = get_config("xlstm-125m").reduced(dtype="float64",
+                                              param_dtype="float64")
+        with _Float64():
+            tstate, want, _, _, metrics = _population_run("xlstm-125m", 16,
+                                                          jc, tc)
+    finally:
+        monkeypatch.undo()
+        jax.config.update("jax_enable_x64", False)
+    for tm, jm in metrics:
+        assert tm["loss"].dtype == torch.float64
+        np.testing.assert_allclose(tm["loss"].numpy(), np.asarray(jm["loss"]),
+                                   rtol=1e-12)
+        np.testing.assert_allclose(tm["grad_norm"].numpy(),
+                                   np.asarray(jm["grad_norm"]), rtol=1e-12)
+    for tree in (tstate["params"], tstate["opt"]["m"]):
+        assert all(t.dtype == torch.float64 for t in tensors(tree))
+    for g, r in zip(tensors(tstate["params"]), tensors(want["params"])):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0, atol=1e-10)
 
 
 def test_population_equals_sequential():

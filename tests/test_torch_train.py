@@ -13,7 +13,10 @@ float32 on both sides:
   (past the reduced window of 32) and reduced ``granite-8b``, and the
   three remat modes against each other;
 * three ``make_train_step`` steps, and ``make_accum_train_step`` with
-  accum 2, against the reference's parameters after the same steps;
+  accum 2, against the reference's parameters after the same steps:
+  recurrentgemma-2b and granite-8b on token batches, and the MoE pair,
+  whisper-medium, command-r-plus-104b and llava-next-34b on both
+  packages' ``concrete_inputs`` batches (frames, patch embeddings);
 * ``train`` with a checkpoint: 2 steps then 2 resumed equal 4 straight.
 
 Tolerances (float32, the same functions in other orders): the loss
@@ -34,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import registry as JR
 from repro.configs.registry import get_config as jget_config
 from repro.data import DataConfig as JDataConfig
 from repro.data import TokenPipeline as JTokenPipeline
@@ -48,7 +52,7 @@ from repro.optim import cosine_schedule as jcosine
 from repro.optim import global_norm as jglobal_norm
 from repro.optim import linear_warmup_cosine as jwarmup
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import get_config
+from repro_torch.configs import concrete_inputs, get_config
 from repro_torch.data import DataConfig, TokenPipeline, make_batch_fn
 from repro_torch.launch import steps as S
 from repro_torch.launch import train as T
@@ -322,13 +326,69 @@ def test_tied_table_gradients_meet_in_float32(monkeypatch):
 
 
 # ------------------------------------------------------------ train step
+#: the families whose batches come from each package's
+#: ``concrete_inputs`` (a VLM's ``img_embeds``, an encoder-decoder's
+#: ``frames``), as the reference's dry run builds them
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b",
+                "whisper-medium", "command-r-plus-104b", "llava-next-34b")
+
+
+#: an entry is held as near ε when its gradient is below NEAR_EPS·ε at a
+#: step in both packages; at most NEAR_EPS_SHARE of the entries may be;
+#: the cases held that way (``test_train_steps_match_reference``)
+NEAR_EPS = 10
+NEAR_EPS_SHARE = 5e-3
+EPS_HELD = ("whisper-medium",)
+
+
+def _near_eps(port_m, ref_m, cfg):
+    """Per leaf: the entries whose gradient, g_t = (m_t - b1·m_(t-1)) /
+    (1 - b1) from the first moments after each step, is below NEAR_EPS·ε
+    at some step in both packages."""
+    lim = NEAR_EPS * cfg.eps
+    near = [torch.zeros_like(m, dtype=torch.bool) for m in port_m[0]]
+    for t in range(1, len(port_m)):
+        for i, (a0, a1, b0, b1) in enumerate(zip(port_m[t - 1], port_m[t],
+                                                 ref_m[t - 1], ref_m[t])):
+            ga, gb = ((n - cfg.b1 * o) / (1 - cfg.b1)
+                      for o, n in ((a0, a1), (b0, b1)))
+            near[i] |= (ga.abs() < lim) & (gb.abs() < lim)
+    return near
+
+
+def _cell_batches(jc, tc, t):
+    """Step ``t``'s batch of a (4, 20) train cell from the reference's
+    and the port's ``concrete_inputs`` (bit for bit the same numbers)."""
+    shape = JR.ShapeSpec("smoke", 20, 4, "train")
+    return (JR.concrete_inputs(jc, shape, seed=10 + t),
+            concrete_inputs(tc, shape, seed=10 + t, device="cpu"))
+
+
 @pytest.mark.parametrize("arch,accum", [("recurrentgemma-2b", 1),
                                         ("recurrentgemma-2b", 2),
-                                        ("granite-8b", 2)])
+                                        ("granite-8b", 2),
+                                        ("granite-moe-3b-a800m", 1),
+                                        ("deepseek-v2-lite-16b", 2),
+                                        ("whisper-medium", 2),
+                                        ("command-r-plus-104b", 1),
+                                        ("llava-next-34b", 2)])
 def test_train_steps_match_reference(arch, accum):
     """Three steps of the reference's (accumulating) train step and the
     port's, from the same state on the same batches: losses, gradient
-    norms and the parameters and moments after them."""
+    norms and the parameters and moments after them.  The families of
+    ``FAMILY_ARCHS`` train on ``concrete_inputs`` batches, frames and
+    patch embeddings split into microbatches with the tokens.
+
+    whisper-medium's key projections have a bias, whose gradient is 0 but
+    for rounding (a bias on every key shifts a query's scores by one
+    constant, which the softmax cancels): ~1e-10 in both packages,
+    unrelated in sign, below AdamW's ε = 1e-8, so each package moves
+    those entries by its own share of lr (up to 3.4e-5 apart after three
+    steps).  Its case holds the entries whose gradient is below
+    ``NEAR_EPS`` ε at a step in both packages (read from the first
+    moments) to AdamW's largest move, counts them (bound
+    ``NEAR_EPS_SHARE``; 328 of 159 168: its 192 key-bias entries and a
+    few that sum to near 0 by chance), and every other entry to 1e-5."""
     jc = jget_config(arch).reduced()
     tc = get_config(arch).reduced()
     jopt = JAdamWConfig(lr=3e-4)
@@ -340,21 +400,46 @@ def test_train_steps_match_reference(arch, accum):
     jstate = JS.init_train_state(jc, jax.random.key(5))
     tstate = train_state_from_reference(tc, _np(jstate))
     jstep = jax.jit(jstep)
+    zeros = [torch.zeros_like(m) for m in tensors(tstate["opt"]["m"])]
+    port_m, ref_m = [zeros], [zeros]
     for t in range(3):
-        batch = _batch(jc.vocab_size, 4, 20, seed=10 + t)
-        jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
-        tstate, tm = tstep(tstate, _torch_batch(batch))
+        if arch in FAMILY_ARCHS:
+            jbatch, tbatch = _cell_batches(jc, tc, t)
+        else:
+            batch = _batch(jc.vocab_size, 4, 20, seed=10 + t)
+            jbatch = jax.tree.map(jnp.asarray, batch)
+            tbatch = _torch_batch(batch)
+        jstate, jm = jstep(jstate, jbatch)
+        tstate, tm = tstep(tstate, tbatch)
         np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                    rtol=1e-5)
         np.testing.assert_allclose(float(tm["grad_norm"]),
                                    float(jm["grad_norm"]), rtol=1e-4)
         np.testing.assert_allclose(float(tm["lr"]), float(jm["lr"]),
                                    rtol=1e-6)
+        port_m.append([m.clone() for m in tensors(tstate["opt"]["m"])])
+        ref_m.append(list(tensors(train_state_from_reference(
+            tc, _np(jstate))["opt"]["m"])))
     want = train_state_from_reference(tc, _np(jstate))
-    for got, ref in zip(tensors((tstate["params"], tstate["opt"]["m"])),
-                        tensors((want["params"], want["opt"]["m"]))):
+    for got, ref in zip(tensors(tstate["opt"]["m"]),
+                        tensors(want["opt"]["m"])):
         np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0,
                                    atol=1e-5)
+    got, ref = list(tensors(tstate["params"])), list(tensors(want["params"]))
+    if arch not in EPS_HELD:
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=0,
+                                       atol=1e-5)
+        return
+    near = _near_eps(port_m, ref_m, topt)
+    n_near = sum(int(n.sum()) for n in near)
+    assert n_near <= NEAR_EPS_SHARE * sum(g.numel() for g in got), n_near
+    # each package moves such an entry by at most ~lr a step
+    move = 2 * 3 * 3e-4 * 1.01
+    for g, r, n in zip(got, ref, near):
+        d = (g - r).abs().numpy()
+        assert d[n.numpy()].max(initial=0.0) <= move
+        assert d[~n.numpy()].max(initial=0.0) <= 1e-5
     assert int(tstate["opt"]["step"]) == 3
 
 
