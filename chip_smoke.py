@@ -6,7 +6,9 @@ deepseek-v2-lite-16b; the encoder-decoder whisper-medium and the
 parallel-block command-r-plus-104b; the VLM llava-next-34b and the xLSTM
 xlstm-125m), the error-feedback int8 all-reduce, and LM training (one
 model, a population of trials in one program, and the MoE,
-encoder-decoder, parallel-block, VLM and xLSTM families).
+encoder-decoder, parallel-block, VLM and xLSTM families), and the mesh
+tooling (a dry run over fake 256- and 512-rank groups, a sharded train
+step).
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -293,6 +295,32 @@ script exits non-zero and prints no result):
    ms a step, tokens a second and peak memory.  command-r-plus-104b takes
    no step: one layer and its tied table are 75.5 GB of state.
 
+9. the mesh and sharding tooling, right after 8g — (a) the dry run
+   (``launch/dryrun.py``) of ``DRYRUN_CELLS``, every arch x shape on the
+   16x16 pod mesh but xlstm-125m's ``train_4k`` and ``prefill_32k`` and
+   recurrentgemma-2b ``train_4k`` on 2x16x16, each cell one step on a
+   fake process group of 256 or 512 ranks over meta tensors in a pool of
+   host processes: every cell ``ok`` or skipped with the reference's
+   reason, command-r ``train_4k``'s argument bytes a device equal to
+   ``sharded_bytes`` of its state recomputed here; each cell's dominant
+   term, roofline fraction, argument bytes and trace seconds.  (b) 8b's
+   step sharded over a one-card mesh (NCCL world 1; ``state_specs``,
+   ``batch_specs``, ``activation_sharding``, ``grad_specs``) from the
+   same state as an unsharded step run just before: loss and parameters
+   bit for bit (else within 1e-6 of the largest, the first differing
+   leaf named), 16 / 8 / 36 / 18 launches (the layers' ``local_map``
+   regions reached the kernels), warm steps timed, one step under the cost analyser whose
+   H100 bound may not exceed the measured step; roofline fraction,
+   useful ratio, peak memory.  (c) 4 gloo ranks on a (2, 2) mesh
+   (``launch/shard_check.py``), reduced recurrentgemma-2b and
+   granite-moe-3b-a800m in float32, 2 sharded AdamW steps within 1e-5
+   of the largest parameter of the same steps unsharded, a planted fault
+   (each region's weight gradients taken as summed over the batch
+   shards) past it, and the collectives ``CommDebugMode`` saw equal to
+   the cost analyser's count on a fake (2, 2) group; on CPU tensors,
+   since a gloo group's functional all-gather (DTensor's) dies on CUDA
+   tensors with no code of the port (``--gloo-cuda``).
+
 7. device times — ``gp_ei`` at every case of phase 2 and ``rglru_scan``
    at every case of phase 4 again, on the same inputs, by torch.profiler:
    the kernels' own time, which at small shapes the CUDA-event time of a
@@ -344,6 +372,26 @@ the card.
 builds the kernels, runs the other families' training checks (the
 backward at their layouts, their gradient holds, their train steps) and
 prints their lines and the card.
+
+    python3 chip_smoke.py --shard          # phases 1 and 9 alone
+
+builds the kernels, runs the mesh tooling's checks (the dry run, the
+sharded step on the card, the 4 gloo ranks) and prints their lines and
+the card.
+
+    python3 chip_smoke.py --serve          # phases 1, 5, 5b and 5c alone
+    python3 chip_smoke.py --shard --serve  # the same after phase 9
+
+builds the kernels and serves recurrentgemma-2b, the MoE family,
+whisper-medium and command-r-plus-104b (their prefill ms and decode
+tokens/s), after phase 9 when asked: what phase 9 leaves behind for the
+phases after it.
+
+    python3 chip_smoke.py --gloo-cuda      # where gloo fails on CUDA
+
+runs each collective a sharded step issues alone on gloo ranks, on CUDA
+and on CPU tensors, then 9c's check on CUDA tensors at one rank and at
+four, and prints each one's exit codes and first error or crash stack.
 """
 from __future__ import annotations
 
@@ -367,10 +415,13 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-#: published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W)
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
+#: published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W), and
+#: the work formulas every bound divides by them, from the package
+from repro_torch.distributed.roofline import (  # noqa: E402
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS)
+from repro_torch.kernels.work import (  # noqa: E402
+    ei_work, flash_bwd_work, flash_work, nll_work, q8_work, scan_bwd_work,
+    scan_work)
 
 KS = (1, 4, 8, 16)
 BS = (16, 64, 256, 512)
@@ -515,33 +566,6 @@ def device_ms(fn, names, n: int = 20) -> float:
             break
     check(us > 0, f"the profiler saw none of {names}")
     return us / 1e3 / n
-
-
-def matern_flops(d: int) -> int:
-    """Operations of one Matérn-5/2 ARD entry: per dimension a
-    difference, a scaling and a multiply-add (3d); then the square root,
-    exponential and the polynomial around them (10)."""
-    return 3 * d + 10
-
-
-def nll_work(k: int, b: int, d: int):
-    """(FLOPs, bytes) ``gp_nll_chol`` needs: per lane the lower triangle
-    of the covariance, a Cholesky (b³/3), the forward solve (b²) and the
-    NLL; each input read once, (nll, L, z) written once."""
-    flops = k * (b * (b + 1) / 2 * matern_flops(d) + b ** 3 / 3 + b * b)
-    nbytes = 4 * (k * d + 2 * k + k * b * d + 2 * k * b      # in
-                  + k + k * b * b + k * b)                   # out
-    return flops, nbytes
-
-
-def ei_work(k: int, b: int, d: int, m: int):
-    """(FLOPs, bytes) ``gp_ei`` needs: per candidate its b covariance
-    entries, μ and Σv² (4b), the forward substitution (b²) and the closed
-    form; each input read once, ei written once."""
-    flops = k * m * (b * b + b * (matern_flops(d) + 4))
-    nbytes = 4 * (k * d + 4 * k + k * b * d + 2 * k * b
-                  + k * b * b + k * m * d + k * m)
-    return flops, nbytes
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -1956,16 +1980,6 @@ FLASH_FAULTS = {"window_minus_1": -1, "oldest_tile_dropped": -64,
 SCAN_LIMIT = 1e-5
 
 
-def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through, counted per query."""
-    total = 0
-    for q in range(Sq):
-        hi = min(q + 1, Skv) if causal else Skv
-        lo = max(0, q - window + 1) if window else 0
-        total += max(0, hi - lo)
-    return total
-
-
 def flash_excess(out, ref32, dtype: str) -> float:
     """The largest ratio of |out - ref32| to its element-wise limit
     (``FLASH_TOL``); at most 1 when ``out`` agrees everywhere."""
@@ -2039,9 +2053,8 @@ def phase_lm_kernels():
         del want
         ms = time_ms(lambda: kfa.flash_attention(q, k, v, **kw))
         plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw))
-        pairs = visible_pairs(Sq, Skv, causal, window)
-        flops = 4 * B * H * D * pairs
-        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        flops, nbytes = flash_work(B, Sq, Skv, H, K, D, causal, window,
+                                   q.element_size())
         bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS if dtype ==
                              "bfloat16" else PEAK_F32_FLOPS)
         emit("flash_case", case=name, B=B, Sq=Sq, Skv=Skv, H=H, K=K, D=D,
@@ -2083,7 +2096,7 @@ def phase_lm_kernels():
             del tiles
         ms = time_ms(lambda: krg.rglru_scan(la, b))
         plain_ms = time_ms(lambda: ref.rglru_scan_ref(la, b))
-        bound, by = bound_ms(3 * B * S * R, 12 * B * S * R)
+        bound, by = bound_ms(*scan_work(B, S, R))
         emit("rglru_case", case=name, B=B, S=S, R=R, limit=lim,
              max_abs_err=abs_err, planted_no_carry_excess=planted, ms=ms,
              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -2189,9 +2202,7 @@ def phase_moe_kernels():
         ms = time_ms(lambda: kfa.flash_attention(qp, kp, vp, **kw))
         pad_ms = time_ms(padded) if D != Dqk or D != Dv else 0.0
         plain_ms = time_ms(lambda: ref.flash_attention_ref(qp, kp, vp, **kw))
-        pairs = visible_pairs(S, S, True, 0)
-        flops = 2 * B * H * pairs * (Dqk + Dv)
-        nbytes = 2 * B * S * (H * Dqk + K * Dqk + K * Dv + H * Dv)
+        flops, nbytes = flash_work(B, S, S, H, K, Dqk, True, 0, 2, Dv)
         bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
         emit("flash_case", case=name, B=B, Sq=S, Skv=S, H=H, K=K, D=D,
              Dqk=Dqk, Dv=Dv, scale=scale, causal=True, window=0,
@@ -2983,8 +2994,8 @@ def flash_layouts(cases, where: str):
         ms = time_ms(lambda: kfa.flash_attention(q, k, v, causal=causal))
         plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v,
                                                            causal=causal))
-        flops = 4 * B * H * D * visible_pairs(Sq, Skv, causal, 0)
-        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+        flops, nbytes = flash_work(B, Sq, Skv, H, K, D, causal, 0,
+                                   q.element_size())
         bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS
                              if dtype == "bfloat16" else PEAK_F32_FLOPS)
         emit("flash_case", case=name, B=B, Sq=Sq, Skv=Skv, H=H, K=K, D=D,
@@ -3347,14 +3358,6 @@ def q8_same(a, b) -> bool:
     (qa, sa), (qb, sb) = a, b
     return (torch.equal(qa, qb) and torch.equal(sa.isnan(), sb.isnan())
             and torch.equal(sa.nan_to_num(), sb.nan_to_num()))
-
-
-def q8_work(n: int):
-    """(operations, bytes) of quantizing n float32 elements: about 6
-    operations an element (|x|, max, divide, round, two clamps); x read
-    once, the (nb, 256) codes and nb scales written once."""
-    nb = -(-n // 256)
-    return 6 * n, 4 * n + 256 * nb + 4 * nb
 
 
 def phase_quant_kernels():
@@ -3789,24 +3792,6 @@ def bwd_excess(got, want32, dtype: str) -> float:
     return worst
 
 
-def flash_bwd_work(B, Sq, Skv, H, K, D, causal, window, elem, Dv=None):
-    """(FLOPs, bytes) the attention backward needs: a visible pair a head
-    takes S = q·k, dK and dQ at the q/k width D and dP = dO·v and dV at
-    the value width Dv (D when None): 2·(3·D + 2·Dv) operations, 10·D
-    when they are equal, 2.5x the forward's; q, k, v, o, dO and lse read
-    once, dq, dk, dv written once.  The bf16 kernels issue twice this
-    product work (P and dS split in two bf16 parts double dV, dK and dQ;
-    S and dP are computed in both the dK/dV and the dQ kernel) on whole
-    64 x 64 tiles of the band, at the padded width: the bound stays the
-    minimum work."""
-    Dv = D if Dv is None else Dv
-    flops = (2 * (3 * D + 2 * Dv) * B * H
-             * visible_pairs(Sq, Skv, causal, window))
-    nbytes = (elem * 2 * (D + Dv) * (B * Sq * H + B * Skv * K)
-              + 4 * B * H * Sq)
-    return flops, nbytes
-
-
 def lm_counters():
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import rglru_scan as krg
@@ -4005,7 +3990,7 @@ def phase_train_kernels():
             del tiles
         ms = time_ms(lambda: krg.rglru_scan_bwd(la, h, dh))
         plain_ms = time_ms(lambda: ref.rglru_scan_bwd_ref(la, h, dh))
-        bound, by = bound_ms(6 * B * S * R, 20 * B * S * R)
+        bound, by = bound_ms(*scan_bwd_work(B, S, R))
         emit("rglru_bwd_case", case=name, B=B, S=S, R=R, limits=lims,
              max_abs_err=errs, planted_no_carry_excess=planted, ms=ms,
              plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -4630,6 +4615,416 @@ def phase_family_train():
     return total
 
 
+# ------------------------------------------------------------- phase 9
+#: 9a: the dry run's cells (arch, shape, multi_pod), each on a fake
+#: process group of 256 or 512 ranks in a pool of worker processes:
+#: every arch x shape on 16x16 but the two that take too long for the
+#: script, and recurrentgemma-2b ``train_4k`` on 2x16x16; the train cells
+#: first, the longest
+DRYRUN_SLOW = (("xlstm-125m", "train_4k"), ("xlstm-125m", "prefill_32k"))
+DRYRUN_CELLS = tuple(
+    (a, s, False) for s in ("train_4k", "prefill_32k", "decode_32k",
+                            "long_500k")
+    for a in ("command-r-plus-104b", "llava-next-34b", "whisper-medium",
+              "phi3-medium-14b", "deepseek-v2-lite-16b",
+              "granite-moe-3b-a800m", "recurrentgemma-2b", "granite-3-8b",
+              "granite-8b", "xlstm-125m")
+    if (a, s) not in DRYRUN_SLOW) + (("recurrentgemma-2b", "train_4k", True),)
+DRYRUN_CUT = ("xlstm-125m train_4k and prefill_32k (its sLSTM steps 4096 "
+              "and 32768 times in Python: ~10 and ~15 min on a host; "
+              "python -m repro_torch.launch.dryrun runs them) and every "
+              "2x16x16 cell but recurrentgemma-2b train_4k")
+DRYRUN_WORKERS = 7
+DRYRUN_TIMEOUT_S = 400
+#: 9b: 8b's step (recurrentgemma-2b, full width and depth, batch 1 x
+#: 3000, lr 3e-4 with 2 warmup steps of 4) sharded over a one-card mesh,
+#: then ``SHARD_WARM`` timed steps and one under the cost analyser; the
+#: sharded step's distance from the unsharded one where it is not bit
+#: for bit, relative to the largest parameter
+SHARD_WARM = 3
+SHARD_LIMIT = 1e-6
+#: 9c: 4 gloo ranks on a (2, 2) mesh, reduced configs in float32, 2
+#: AdamW steps of batch 4 x 32, against the same steps unsharded
+SHARD_RANK_ARCHS = ("recurrentgemma-2b", "granite-moe-3b-a800m")
+SHARD_RANK_CELL = dict(mesh=(2, 2), batch=4, seq=32, steps=2)
+#: 9c's tensors: on CUDA tensors a gloo group's functional all-gather,
+#: which DTensor's redistribution issues, dies (SIGSEGV) with no code of
+#: the port at one rank and at two, while c10d's own collectives work
+#: (``--gloo-cuda``, ``phase_gloo_probe``); NCCL cannot place four ranks
+#: on the one card
+SHARD_RANK_DEVICE = "cpu"
+#: ``--gloo-cuda``: the collectives a sharded step issues, each alone on
+#: gloo ranks: c10d's, the functional collectives DTensor issues (each
+#: followed by its ``wait_tensor``), and a DTensor's redistribution
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor",
+                  "reduce_scatter_tensor", "all_to_all_single",
+                  "funcol_all_gather", "funcol_reduce_scatter",
+                  "dtensor_gather")
+GLOO_PROBE_WORLDS = (1, 2)
+
+
+def dryrun_cell(cell) -> dict:
+    """One cell of 9a in a worker process: its record (a failure's
+    traceback cut to its end)."""
+    from repro_torch.launch import dryrun
+    arch, shape, multi_pod = cell
+    out = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"))
+    rec = dryrun.run_cell(arch, shape, multi_pod, out, verbose=False)
+    rec["traceback"] = rec.get("traceback", "")[-3000:]
+    return rec
+
+
+def phase_dryrun():
+    """9a: the dry run (host, fake ranks): every cell of ``DRYRUN_CELLS``
+    ``ok`` or skipped with the reference's reason, and command-r-plus-
+    104b ``train_4k``'s argument bytes a device equal to ``sharded_bytes``
+    of its state recomputed here."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.auto_shard import sharded_bytes
+    from repro_torch.launch import steps as S
+    from repro_torch.models.common import SHAPES, shape_applicable
+    t0 = time.perf_counter()
+    with cf.ProcessPoolExecutor(DRYRUN_WORKERS,
+                                mp_context=mp.get_context("spawn")) as ex:
+        recs = list(ex.map(dryrun_cell, DRYRUN_CELLS,
+                           timeout=DRYRUN_TIMEOUT_S))
+    wall = time.perf_counter() - t0
+    for (arch, shape, _), rec in zip(DRYRUN_CELLS, recs):
+        ok, reason = shape_applicable(get_config(arch), SHAPES[shape])
+        check(rec["ok"], f"dry run {arch} {shape} {rec['mesh']}: "
+              f"{rec.get('error')}\n{rec['traceback']}")
+        check(rec.get("skipped", False) == (not ok)
+              and rec.get("skip_reason", "") == reason,
+              f"dry run {arch} {shape}: skip {rec.get('skip_reason')}")
+        emit("dryrun_cell", arch=arch, shape=shape, mesh=rec["mesh"],
+             skipped=rec.get("skipped", False),
+             **({} if rec.get("skipped") else dict(
+                 dominant=rec["roofline"]["dominant"],
+                 roofline_fraction=rec["roofline"].get("roofline_fraction"),
+                 useful_ratio=rec["roofline"].get("useful_ratio"),
+                 bound_s=rec["roofline"]["bound_s"],
+                 arg_bytes_per_device=rec["arg_bytes_per_device"],
+                 reordered_leaves=rec["reordered_leaves"],
+                 trace_s=rec["trace_s"],
+                 collectives=rec["collectives"]["counts"],
+                 kernels=rec["kernels"])))
+    cfg = get_config("command-r-plus-104b")
+    shapes = S.train_state_shapes(cfg)
+    pod = {"data": 16, "model": 16}
+    want = sharded_bytes(shapes, S.state_specs(cfg, pod, shapes), pod)
+    got = next(r for c, r in zip(DRYRUN_CELLS, recs)
+               if c == ("command-r-plus-104b", "train_4k", False))
+    check(got["arg_bytes_per_device"] == want,
+          f"command-r train_4k: {got['arg_bytes_per_device']} argument "
+          f"bytes a device, its state's sharded_bytes {want}")
+    emit("dryrun", cells=len(recs), workers=DRYRUN_WORKERS, wall_s=wall,
+         cut=DRYRUN_CUT, command_r_train_arg_bytes=want,
+         trace_s_sum=sum(r.get("trace_s", 0.0) for r in recs))
+    return recs
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def shard_train_run(cfg, dev, batches, opt_cfg, schedule, warm: int,
+                    backend: str):
+    """9b's work (the card's, or on the CPU a rehearsal's): one
+    unsharded step of ``init_train_state(cfg, 0)`` on ``batches[0]``;
+    then the same state sharded over a one-rank mesh (``state_specs``,
+    ``batch_specs``, ``activation_sharding``, ``grad_specs``) through the
+    same step, ``warm`` timed steps and one under the cost analyser ->
+    a dict of the hold, the launches, the times and the cost."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.registry import input_specs
+    from repro_torch.distributed import cost
+    from repro_torch.distributed.act_sharding import activation_sharding
+    from repro_torch.distributed.auto_shard import Spec, shard_tree
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import ShapeSpec
+    from repro_torch.models.model import tensors
+    counters = lm_counters()
+    counts = lambda: {n: c.count for n, c in counters.items()}  # noqa: E731
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    state = S.init_train_state(cfg, 0, dev)
+    _, step = S.make_train_step(cfg, opt_cfg, schedule)
+    state, m = step(state, batches[0])
+    sync()
+    want_loss = float(m["loss"])
+    want = [t.cpu() for t in tensors(state["params"])]
+    del state, m, step
+    if dev.type == "cuda":
+        free_card("shard_train_unsharded_done")
+        torch.cuda.reset_peak_memory_stats()
+    B, S_ = batches[0]["tokens"].shape
+    shape = ShapeSpec("shard", S_, B, "train")
+    dist.init_process_group(backend, init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_local_mesh((1, 1))
+        specs = S.state_specs(cfg, mesh, S.train_state_shapes(cfg))
+        state = shard_tree(S.init_train_state(cfg, 0, dev), mesh, specs)
+        b_specs = S.batch_specs(cfg, shape, mesh, input_specs(cfg, shape))
+        tok = b_specs["tokens"]
+        _, sstep = S.make_train_step(cfg, opt_cfg, schedule,
+                                     grad_specs=specs["params"])
+
+        def run(t):
+            batch = shard_tree(batches[t], mesh, b_specs)
+            with implicit_replication(), \
+                    activation_sharding(Spec(tok[0], tok[1])):
+                return sstep(state, batch)
+        for c in counters.values():
+            c.reset()
+        state, m = run(0)
+        sync()
+        launches = counts()
+        loss = float(m["loss"].to_local())
+        worst, mag, first = 0.0, 0.0, None
+        for i, (p, w) in enumerate(zip(tensors(state["params"]), want)):
+            p = p.to_local()
+            w = w.to(p.device)
+            if not torch.equal(p, w) and first is None:
+                first = i
+            worst = max(worst, float((p.double() - w.double()).abs().max()))
+            mag = max(mag, float(w.double().abs().max()))
+        del want
+        ms = []
+        for t in range(1, warm + 1):
+            sync()
+            t0 = time.perf_counter()
+            state, m = run(t)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        with cost.counting() as counter:
+            state, m = run(warm + 1)
+            sync()
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None)
+        mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        del state, m
+    finally:
+        dist.destroy_process_group()
+    return dict(loss=loss, want_loss=want_loss, launches=launches,
+                bit_equal=first is None and loss == want_loss,
+                first_differing_leaf=first, rel_err=worst / max(mag, 1e-30),
+                warm_ms=ms, cost=counter.result(), peak_gb=peak,
+                mesh=mesh_shape, tokens=B * S_)
+
+
+def phase_shard_train():
+    """9b: the sharded train step on the card (see ``shard_train_run``):
+    its loss and updated parameters equal the unsharded step's bit for
+    bit (else within ``SHARD_LIMIT`` of the largest, the first differing
+    leaf named), 8b's launches a step (so ``local_map`` reached the
+    kernels), and its cost analyser's bound no more than the measured
+    warm step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.distributed.roofline import roofline_terms
+    from repro_torch.optim import AdamWConfig, linear_warmup_cosine
+    dev = torch.device("cuda", 0)
+    free_card("shard_train")
+    cfg = get_config(TRAIN["arch"])
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN["seq"],
+                                    global_batch=TRAIN["batch"], seed=0))
+    batches = [{k: torch.as_tensor(v, device=dev).long()
+                for k, v in pipe.batch_at(t).items()}
+               for t in range(SHARD_WARM + 2)]
+    opt_cfg = AdamWConfig(lr=3e-4)
+    schedule = linear_warmup_cosine(3e-4, TRAIN["warmup"], TRAIN["steps"])
+    r = shard_train_run(cfg, dev, batches, opt_cfg, schedule, SHARD_WARM,
+                        "nccl")
+    check(r["launches"] == TRAIN_LAUNCHES,
+          f"sharded step launches {r['launches']}")
+    check(r["cost"]["kernels"] and {k: v["launches"] for k, v in
+                                    r["cost"]["kernels"].items()}
+          == TRAIN_LAUNCHES, f"charged launches {r['cost']['kernels']}")
+    check(r["bit_equal"] or r["rel_err"] <= SHARD_LIMIT,
+          f"sharded step: leaf {r['first_differing_leaf']} first differs, "
+          f"{r['rel_err']} of the largest parameter; loss {r['loss']} vs "
+          f"{r['want_loss']}")
+    n = cfg.param_count()
+    model_flops = 6.0 * n * r["tokens"]
+    terms = roofline_terms(r["cost"], r["cost"]["ici_bytes"],
+                           model_flops_per_chip=model_flops)
+    step_s = sorted(r["warm_ms"])[len(r["warm_ms"]) // 2] / 1e3
+    check(terms["bound_s"] <= step_s,
+          f"sharded step {step_s} s is faster than its bound "
+          f"{terms['bound_s']} s")
+    emit("shard_train", arch=TRAIN["arch"], batch=TRAIN["batch"],
+         seq=TRAIN["seq"], mesh=r["mesh"], backend="nccl", world=1,
+         loss=r["loss"], unsharded_loss=r["want_loss"],
+         bit_equal=r["bit_equal"], rel_err=r["rel_err"],
+         first_differing_leaf=r["first_differing_leaf"],
+         launches=r["launches"], warm_ms=r["warm_ms"], step_ms=step_s * 1e3,
+         bound_ms=terms["bound_s"] * 1e3, dominant=terms["dominant"],
+         roofline_fraction=model_flops / PEAK_BF16_FLOPS / step_s,
+         useful_ratio=terms["useful_ratio"], peak_memory_gb=r["peak_gb"],
+         peak_memory_gb_8b=58.58, params=n,
+         cost={k: r["cost"][k] for k in ("flops", "bytes accessed",
+                                         "ici_bytes", "collective_counts",
+                                         "kernels", "aten_ops", "top_ops")},
+         terms=terms)
+    return r["launches"]
+
+
+def phase_shard_ranks():
+    """9c: 4 gloo ranks on a (2, 2) mesh, on CPU tensors (``SHARD_RANK_
+    DEVICE``), reduced recurrentgemma-2b and granite-moe-3b-a800m in
+    float32: 2 sharded AdamW steps within ``shard_check.LIMIT`` of the
+    unsharded ones on every rank, a planted fault (each region's weight
+    gradients taken as summed over the batch shards) past it, and the
+    collectives ``CommDebugMode`` saw equal to the cost analyser's count
+    of the same cell on a fake (2, 2) group."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shard_check
+    from repro_torch.models.common import ShapeSpec
+    c = SHARD_RANK_CELL
+    device = SHARD_RANK_DEVICE
+    for arch in SHARD_RANK_ARCHS:
+        t0 = time.perf_counter()
+        normal, fault = shard_check.run_ranks(
+            4, arch, c["mesh"], c["batch"], c["seq"], c["steps"],
+            faults=(False, True), device=device, timeout_s=RANK_TIMEOUT_S)
+        for r in normal:
+            check(r["rel_err"] <= shard_check.LIMIT,
+                  f"{arch} rank {r['rank']}: {r['rel_err']} of the largest "
+                  "parameter from the unsharded steps")
+        for r in fault:
+            check(r["rel_err"] > shard_check.LIMIT,
+                  f"{arch} rank {r['rank']}: the planted fault passes "
+                  f"({r['rel_err']})")
+        cost = shard_check.fake_cost(
+            get_config(arch).reduced(),
+            ShapeSpec("check", c["seq"], c["batch"], "train"), c["mesh"],
+            device=device)
+        check(cost["collective_counts"] == normal[0]["comms"],
+              f"{arch}: CommDebugMode saw {normal[0]['comms']}, the cost "
+              f"analyser counts {cost['collective_counts']}")
+        emit("shard_ranks", arch=arch, ranks=4, backend="gloo",
+             device=device, **c,
+             wall_s=time.perf_counter() - t0, limit=shard_check.LIMIT,
+             rel_err=[r["rel_err"] for r in normal],
+             fault_rel_err=[r["rel_err"] for r in fault],
+             losses=normal[0]["losses"],
+             plain_losses=normal[0]["plain_losses"],
+             comms=normal[0]["comms"],
+             analyser_comms=cost["collective_counts"])
+
+
+def gloo_probe_rank(rank: int, world: int, store: str, op: str,
+                    device: str, out: str) -> None:
+    """One rank of ``phase_gloo_probe``: ``op`` once on a float32 tensor
+    of ``device`` in a gloo group of ``world``; a Python exception, or
+    the stack of a fatal signal, written to ``out``."""
+    import faulthandler
+    import traceback
+    import torch.distributed as dist
+    fh = open(out, "w")
+    faulthandler.enable(fh)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        x = torch.arange(4 * world, dtype=torch.float32,
+                         device=device) + rank
+        if op == "all_reduce":
+            dist.all_reduce(x)
+        elif op == "broadcast":
+            dist.broadcast(x, 0)
+        elif op == "all_gather_into_tensor":
+            dist.all_gather_into_tensor(
+                torch.empty(4 * world * world, device=device), x)
+        elif op == "reduce_scatter_tensor":
+            dist.reduce_scatter_tensor(torch.empty(4, device=device), x)
+        elif op == "all_to_all_single":
+            dist.all_to_all_single(torch.empty_like(x), x)
+        elif op == "funcol_all_gather":
+            from torch.distributed import _functional_collectives as fc
+            fc.wait_tensor(fc.all_gather_tensor(x, 0, dist.group.WORLD))
+        elif op == "funcol_reduce_scatter":
+            from torch.distributed import _functional_collectives as fc
+            fc.wait_tensor(fc.reduce_scatter_tensor(x, "sum", 0,
+                                                   dist.group.WORLD))
+        else:
+            from torch.distributed.device_mesh import init_device_mesh
+            from torch.distributed.tensor import (Replicate, Shard,
+                                                  distribute_tensor)
+            mesh = init_device_mesh(device, (world,))
+            t = distribute_tensor(x.reshape(world, 4), mesh, [Shard(0)])
+            t.redistribute(mesh, [Replicate()]).to_local()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    except Exception:
+        fh.write(traceback.format_exc())
+        fh.flush()
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_gloo_probe():
+    """Where gloo ranks on CUDA tensors fail: each collective of
+    ``GLOO_PROBE_OPS`` alone in gloo groups of ``GLOO_PROBE_WORLDS``
+    ranks, on CUDA and on CPU tensors (no code of the port), then 9c's
+    check on CUDA tensors at one rank (mesh (1, 1)) and at four -> a line
+    for each: the ranks' exit codes and the first error or crash stack."""
+    import multiprocessing as mp
+    from repro_torch.launch import shard_check
+    ctx = mp.get_context("spawn")
+    for device in ("cuda", "cpu"):
+        for world in GLOO_PROBE_WORLDS:
+            for op in GLOO_PROBE_OPS:
+                work = pathlib.Path(tempfile.mkdtemp(prefix="gloo-probe-"))
+                outs = [str(work / f"rank{r}.txt") for r in range(world)]
+                procs = [ctx.Process(target=gloo_probe_rank, args=(
+                    r, world, str(work / "store"), op, device, outs[r]))
+                    for r in range(world)]
+                for q in procs:
+                    q.start()
+                for q in procs:
+                    q.join(60)
+                    if q.is_alive():
+                        q.kill()
+                        q.join(10)
+                texts = [pathlib.Path(o).read_text() for o in outs
+                         if pathlib.Path(o).exists()]
+                emit("gloo_probe", device=device, world=world, op=op,
+                     exit_codes=[q.exitcode for q in procs],
+                     first_error=next((t for t in texts if t), "")[-2000:])
+    c = SHARD_RANK_CELL
+    for world, mesh in ((1, (1, 1)), (4, c["mesh"])):
+        try:
+            recs = shard_check.run_ranks(
+                world, SHARD_RANK_ARCHS[0], mesh, c["batch"], c["seq"],
+                c["steps"], device="cuda", timeout_s=RANK_TIMEOUT_S)[0]
+            emit("gloo_probe", device="cuda", world=world, op="shard_check",
+                 mesh=mesh, exit_codes=[0] * world, first_error="",
+                 rel_err=[r["rel_err"] for r in recs])
+        except RuntimeError as e:
+            emit("gloo_probe", device="cuda", world=world, op="shard_check",
+                 mesh=mesh, exit_codes=None, first_error=str(e)[-4000:])
+
+
+def serve_phases():
+    """Phases 5, 5b and 5c alone (``--serve``): the LM servers' prefill
+    ms and decode tokens/s, each phase's card freed after it."""
+    phase_serve()
+    free_card("after phase 5")
+    phase_moe_serve()
+    free_card("after phase 5b")
+    phase_encdec_serve()
+    free_card("after phase 5c")
+
+
 def main() -> int:
     global CARD
     if not torch.cuda.is_available():
@@ -4689,6 +5084,27 @@ def main() -> int:
         phase_family_train()
         print(card_line())
         return 0
+    if sys.argv[1:] == ["--shard"]:
+        phase_card()
+        phase_dryrun()
+        phase_shard_train()
+        phase_shard_ranks()
+        print(card_line())
+        return 0
+    if sys.argv[1:] in (["--serve"], ["--shard", "--serve"]):
+        phase_card()
+        if "--shard" in sys.argv:
+            phase_dryrun()
+            phase_shard_train()
+            phase_shard_ranks()
+            free_card("after phase 9")
+        serve_phases()
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--gloo-cuda"]:
+        phase_gloo_probe()
+        print(card_line())
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
@@ -4707,6 +5123,12 @@ def main() -> int:
     family_layouts = phase_family_bwd()
     phase_family_parity()
     families = phase_family_train()
+    # phase 9 here, while the card holds nothing outside the allocator:
+    # after phase 6c its 59 GB step runs out of memory beside the ~15 GB
+    # that the GP threads leave held
+    phase_dryrun()
+    sharded = phase_shard_train()
+    phase_shard_ranks()
     free_card("after phase 8")
     summary.update(phase_kernels())
     phase_gp_parity()
@@ -4784,6 +5206,7 @@ def main() -> int:
         k["encdec_serve_launches"] = encdec.get(k["name"], 0)
         k["vlm_serve_launches"] = vlm.get(k["name"], 0)
         k["train_families_launches"] = families.get(k["name"], 0)
+        k["sharded_train_launches"] = sharded.get(k["name"], 0)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(

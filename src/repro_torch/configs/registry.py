@@ -8,9 +8,9 @@ reference's ``get_config`` does.
 input-shape) cell with its shape and torch dtype, as the reference's
 does with ``jax.ShapeDtypeStruct``s; ``concrete_inputs`` draws a real
 batch of those shapes from a numpy seed, number for number the
-reference's, on a device (the card by default).  The reference's
-``cache_specs`` is left out: it shapes the dry run's decode cache, which
-belongs to the XLA tooling the port has not ported (ROADMAP.md §1).
+reference's, on a device (the card by default).  ``cache_specs(cfg,
+shape)`` is the cell's decode cache as meta tensors (shapes and dtypes,
+no storage), the dry run's decode cache.
 """
 from __future__ import annotations
 
@@ -79,6 +79,16 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Spec]:
     return specs
 
 
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec):
+    """The decode cache of a cell, ``LM(cfg).init_cache`` on the meta
+    device: each layer's entry is the reference's stacked entry with its
+    leading ``repeats`` dim unstacked, ``pos`` (B,) int32."""
+    from repro_torch.models.model import LM  # lazy, avoids cycle
+    B, S = shape.global_batch, shape.seq_len
+    enc = cfg.encoder_seq if cfg.family == "encdec" else 0
+    return LM(cfg).init_cache(B, S, device="meta", enc_len=enc)
+
+
 def concrete_inputs(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """A real batch of ``input_specs(cfg, shape)`` on ``device`` (the CUDA
@@ -98,5 +108,5 @@ def concrete_inputs(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
     return out
 
 
-__all__ = ["list_archs", "get_config", "input_specs", "concrete_inputs",
-           "SHAPES"]
+__all__ = ["list_archs", "get_config", "input_specs", "cache_specs",
+           "concrete_inputs", "SHAPES"]

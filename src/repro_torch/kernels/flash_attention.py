@@ -37,7 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._launch import I, P, LaunchCounter, _check, _fn, \
     _no_grad_inputs, _raise_on, current_stream, on_device
 
@@ -158,7 +158,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  int(window), float(softcap), scale, current_stream(dev))
     _raise_on(err, "flash_attention")
     flash_attention_launches.add()
+    work.charge("flash_attention", work.flash_work, B, Sq, Skv, H, K, D,
+                causal, window, q.element_size())
     return (o, lse) if return_lse else o
+
+
+def flash_attention_meta(q, k, v, *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0, scale=None,
+                         return_lse: bool = False):
+    """The kernel's meta function, for meta tensors (shapes only: the dry
+    run): ``flash_attention``'s outputs, uninitialised, and the launch
+    charged by its work formula (``work.flash_work``); nothing counted."""
+    B, Sq, H, D = q.shape
+    o = torch.empty(B, Sq, H, v.shape[-1], dtype=q.dtype, device=q.device)
+    work.charge("flash_attention", work.flash_work, B, Sq, k.shape[1], H,
+                k.shape[2], D, causal, window, q.element_size(),
+                v.shape[-1])
+    if not return_lse:
+        return o
+    return o, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+
+
+def flash_attention_bwd_meta(q, k, v, o, lse, do, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0,
+                             scale=None):
+    """The backward kernel's meta function (see ``flash_attention_meta``):
+    (dq, dk, dv) uninitialised, the launch charged by
+    ``work.flash_bwd_work``."""
+    B, Sq, H, D = q.shape
+    work.charge("flash_attention_bwd", work.flash_bwd_work, B, Sq,
+                k.shape[1], H, k.shape[2], D, causal, window,
+                q.element_size(), v.shape[-1])
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -203,4 +234,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                  int(window), float(softcap), scale, current_stream(dev))
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd_launches.add()
+    work.charge("flash_attention_bwd", work.flash_bwd_work, B, Sq, Skv, H,
+                K, D, causal, window, q.element_size())
     return dq, dk, dv

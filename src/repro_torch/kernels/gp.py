@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._launch import (I as _I, P as _P, LaunchCounter,
                                          _check, _fn, _raise_on,
                                          current_stream, on_device)
@@ -91,6 +91,7 @@ def gp_nll_chol(log_ls, log_amp, log_noise, x, y, mask):
                  L.data_ptr(), z.data_ptr(), k, b, d, stream)
     _raise_on(err, "gp_nll")
     gp_nll_launches.add()
+    work.charge("gp_nll", work.nll_work, k, b, d)
     return nll, L, z
 
 
@@ -189,4 +190,5 @@ def gp_ei(log_ls, log_amp, x, mask, chol, alpha, y_mean, y_std, cand, best,
                  float(xi), current_stream(dev))
     _raise_on(err, "gp_ei")
     gp_ei_launches.add()
+    work.charge("gp_ei", work.ei_work, k, b, d, m)
     return ei

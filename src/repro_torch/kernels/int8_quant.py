@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._launch import I64, P, LaunchCounter, _fn, \
     _raise_on
 
@@ -43,4 +43,5 @@ def int8_quantize(x: torch.Tensor):
         err = fn(flat.data_ptr(), q.data_ptr(), scales.data_ptr(), n, stream)
     _raise_on(err, "int8_quantize")
     int8_quantize_launches.add()
+    work.charge("int8_quantize", work.q8_work, n)
     return q, scales

@@ -15,6 +15,12 @@ trainer, ``core/vmap_trials.py``) one launch serves every trial.  Where
 nothing needs a gradient (serving), ``flash_attention`` calls its wrapper
 directly, and the kernel writes no row log-sum-exp.
 
+Meta tensors (shapes only: the dry run's) take the kernels' meta
+functions: the kernel's outputs, uninitialised, each launch charged by
+its work formula (``kernels/work.py``), so a dry run costs what the
+card's kernels would do rather than the plain versions' sequential loops
+and dense S x S scores.  The wrappers themselves raise on meta tensors.
+
 ``force_kernel=True`` asks for the kernel wrapper whatever the tensor's
 device, as the reference's flag does.  The GP wrappers have a CPU form of
 their own — the autograd ``gp_nll`` with its analytic backward, over the
@@ -93,6 +99,11 @@ def _differentiated(*ts: torch.Tensor) -> bool:
                    for t in ts))
 
 
+def _lm(wrapper, meta, t):
+    """An LM kernel's wrapper, or its meta function for a meta tensor."""
+    return meta if t.is_meta else wrapper
+
+
 def _fold(t, dim, size):
     """A vmapped argument with its mapped dim (None: not mapped, so
     broadcast) folded into its leading batch dim: (size·B, ...)."""
@@ -110,9 +121,9 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, causal, window, softcap, scale):
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale,
-                                   return_lse=True)
+        fwd = _lm(_fa.flash_attention, _fa.flash_attention_meta, q)
+        return fwd(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale, return_lse=True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -144,9 +155,10 @@ class _FlashAttentionBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, o, lse, do, causal, window, softcap, scale):
-        return _fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                       window=window, softcap=softcap,
-                                       scale=scale)
+        bwd = _lm(_fa.flash_attention_bwd, _fa.flash_attention_bwd_meta,
+                  q)
+        return bwd(q, k, v, o, lse, do, causal=causal, window=window,
+                   softcap=softcap, scale=scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -172,7 +184,7 @@ class _RglruScan(torch.autograd.Function):
 
     @staticmethod
     def forward(log_a, b):
-        return _rg.rglru_scan(log_a, b)
+        return _lm(_rg.rglru_scan, _rg.rglru_scan_meta, log_a)(log_a, b)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -196,7 +208,8 @@ class _RglruScanBwd(torch.autograd.Function):
 
     @staticmethod
     def forward(log_a, h, dh):
-        return _rg.rglru_scan_bwd(log_a, h, dh)
+        return _lm(_rg.rglru_scan_bwd, _rg.rglru_scan_bwd_meta, log_a)(
+            log_a, h, dh)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -224,8 +237,9 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
     _need_cuda("flash_attention", q, force_kernel)
     if not _differentiated(q, k, v):
         # serving: no graph, so no lse to save
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale)
+        fwd = _lm(_fa.flash_attention, _fa.flash_attention_meta, q)
+        return fwd(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale)
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)[0]
 
 

@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, work
 from repro_torch.kernels._launch import I, I64, P, LaunchCounter, _check, \
     _fn, _no_grad_inputs, _raise_on, current_stream, on_device
 
@@ -74,7 +74,23 @@ def rglru_scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                  scratch.data_ptr(), B, S, R, current_stream(dev))
     _raise_on(err, "rglru_scan")
     rglru_scan_launches.add()
+    work.charge("rglru_scan", work.scan_work, B, S, R)
     return h
+
+
+def rglru_scan_meta(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's meta function, for meta tensors (shapes only: the dry
+    run): h uninitialised, the launch charged by ``work.scan_work``."""
+    work.charge("rglru_scan", work.scan_work, *log_a.shape)
+    return torch.empty_like(log_a, dtype=torch.float32)
+
+
+def rglru_scan_bwd_meta(log_a, h, dh):
+    """The backward kernel's meta function: (d_log_a, d_b) uninitialised,
+    the launch charged by ``work.scan_bwd_work``."""
+    work.charge("rglru_scan_bwd", work.scan_bwd_work, *log_a.shape)
+    return (torch.empty_like(log_a, dtype=torch.float32),
+            torch.empty_like(log_a, dtype=torch.float32))
 
 
 def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
@@ -107,4 +123,5 @@ def rglru_scan_bwd(log_a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
                  B, S, R, current_stream(dev))
     _raise_on(err, "rglru_scan_bwd")
     rglru_scan_bwd_launches.add()
+    work.charge("rglru_scan_bwd", work.scan_bwd_work, B, S, R)
     return d_log_a, d_b

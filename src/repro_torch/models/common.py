@@ -133,6 +133,9 @@ class ModelConfig:
         return all(k in (RGLRU, MLSTM, SLSTM, LOCAL_ATTN)
                    for k in self.pattern)
 
+    def has_decoder(self) -> bool:
+        return True  # every assigned arch has an autoregressive decoder
+
     # -------------------------------------------------------------- counts
     def param_count(self) -> int:
         """Exact parameter count of the port's ``LM.init`` (allocates
@@ -141,6 +144,17 @@ class ModelConfig:
 
         params = _model.LM(self).init(seed=0, device="meta")
         return sum(t.numel() for t in _model.tensors(params))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: only top_k + shared experts);
+        the dry run's 6·N·D model FLOPs of an MoE use it."""
+        total = self.param_count()
+        if not self.moe:
+            return total
+        per_expert = 3 * self.d_model * self.d_ff_expert
+        n_moe_layers = self.n_layers - self.first_dense_layers
+        inactive = (self.n_experts - self.top_k) * per_expert * n_moe_layers
+        return total - inactive
 
     # -------------------------------------------------------------- smoke
     def reduced(self, **overrides: Any) -> "ModelConfig":

@@ -14,6 +14,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.act_sharding import constrain
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -69,7 +71,7 @@ def dense(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
     y = torch.matmul(x, p["w"].to(dtype))
     if "b" in p:
         y = y + p["b"].to(dtype)
-    return y
+    return constrain(y)  # anchor to batch/seq sharding (no-op off-mesh)
 
 
 def init_norm(init: Init, d: int, cfg, kind: Optional[str] = None) -> Params:

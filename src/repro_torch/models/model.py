@@ -48,7 +48,17 @@ counterpart of ``dots_saveable``), "none" keeps everything.  Under "full"
 every layer's forward, and so each of its kernels, runs twice a step.
 
 ``init`` and ``init_cache`` make their tensors on the CUDA card unless
-given ``device`` (``device.resolve``: no card and no ``device`` raises).
+given ``device`` (``device.resolve``: no card and no ``device`` raises);
+a cache's ``pos`` is (B,) int32, as the reference's.
+
+Given DTensors (a sharded step, ``launch/steps.py``) the model runs
+each layer as one region of plain tensors on each rank's batch shard,
+its weights gathered (``repro_torch._dtensor``, FSDP-style), and the
+embedding and the final norm with the unembedding on each rank's rows;
+between them it anchors the activations to the ambient (batch, seq) spec
+where the reference does (``distributed/act_sharding.py``): the
+embedding, the end of each repeat of a group's pattern and the logits.
+On plain tensors the anchors do nothing and no region is entered.
 """
 from __future__ import annotations
 
@@ -63,6 +73,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch._dtensor import is_dtensor, on_batch_shards, on_row_shards
+from repro_torch.distributed.act_sharding import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -134,6 +146,13 @@ def build_specs(cfg: ModelConfig) -> Tuple[LayerSpec, ...]:
     """One spec per layer, in stack order."""
     return tuple(spec for pattern, reps in model_groups(cfg)
                  for _ in range(reps) for spec in pattern)
+
+
+def repeat_ends(cfg: ModelConfig) -> Tuple[bool, ...]:
+    """Per layer, whether it ends a repeat of its group's pattern: where
+    the reference's scanned step returns, and anchors its carry."""
+    return tuple(j == len(pattern) - 1 for pattern, reps in model_groups(cfg)
+                 for _ in range(reps) for j in range(len(pattern)))
 
 
 #: what the reference's LM defines, and so what the port's runs
@@ -224,7 +243,21 @@ def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
                enc=None, collect_cache: bool = False, cache_len: int = 0):
     """Returns (x, the layer's MoE aux loss, its decode-cache entry: {}
     unless ``collect_cache``).  ``enc``: the encoder output an ``XATTN``
-    layer cross-attends to."""
+    layer cross-attends to.  A sharded x: the layer on each rank's batch
+    shard, the aux loss the batch mean."""
+    if is_dtensor(x):
+        names = _cache_names(spec, cfg) if collect_cache else []
+
+        def local(a, pl):
+            y, aux, entry = _layer_fwd(spec, pl, a[0], positions, cfg,
+                                       enc=a[1] if len(a) > 1 else None,
+                                       collect_cache=collect_cache,
+                                       cache_len=cache_len)
+            return (y, aux, *(entry[n] for n in names))
+        y, aux, *vals = on_batch_shards(
+            local, (x,) if enc is None else (x, enc), p,
+            ["batch", "mean"] + ["batch"] * len(names))
+        return y, aux, dict(zip(names, vals))
     eps = cfg.norm_eps
     h = L.apply_norm(p["ln1"], x, eps)
     entry: Params = {}
@@ -305,7 +338,22 @@ def _pad_kv(kv: Params, cache_len: int, window: int, cfg) -> Params:
 
 
 def _layer_decode(spec: LayerSpec, p: Params, x, cache: Params, pos, cfg):
-    """x: (B,1,d); returns (x, new_cache_entry)."""
+    """x: (B,1,d); returns (x, new_cache_entry).  A sharded x: the step
+    on each rank's batch shard, the cache gathered along any other dim
+    for it (the new row written at its slot) and the updated entry put
+    back on the cache's placements."""
+    if is_dtensor(x):
+        names = list(cache)
+
+        def local(a, pl):
+            y, new = _layer_decode(spec, pl, a[0], dict(zip(names, a[1])),
+                                   a[2], cfg)
+            return (y, *(new[n] for n in names))
+        y, *vals = on_batch_shards(
+            local, (x, [cache[n] for n in names], pos), p,
+            ["batch"] * (1 + len(names)))
+        return y, {n: v.redistribute(v.device_mesh, cache[n].placements)
+                   for n, v in zip(names, vals)}
     eps = cfg.norm_eps
     h = L.apply_norm(p["ln1"], x, eps)
     if spec.kind in (ATTN, LOCAL_ATTN, XATTN):
@@ -349,11 +397,20 @@ def _init_cache_entry(spec: LayerSpec, cfg: ModelConfig, batch: int,
     return getattr(R, f"init_{spec.kind}_cache")(cfg, batch, device=device)
 
 
+def _cache_names(spec: LayerSpec, cfg: ModelConfig) -> List[str]:
+    """The names of a layer's decode-cache entry."""
+    return list(_init_cache_entry(spec, cfg, 0, 0, torch.device("meta")))
+
+
 #: an encoder layer: non-causal self-attention and an MLP
 ENCODER_SPEC = LayerSpec(ATTN, "mlp")
 
 
 def _encoder_layer(p: Params, x, positions, cfg):
+    if is_dtensor(x):                       # on each rank's batch shard
+        return on_batch_shards(
+            lambda xl, pl: _encoder_layer(pl, xl, positions, cfg), x, p,
+            ["batch"])
     h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
     x = x + A.attn_forward(p["attn"], h, positions, cfg, causal=False)
     ff, _ = _ffn_apply(ENCODER_SPEC, p, L.apply_norm(p["ln2"], x,
@@ -384,6 +441,7 @@ class LM:
         _check_supported(cfg)
         self.cfg = cfg
         self.specs = build_specs(cfg)
+        self.ends = repeat_ends(cfg)
 
     # ------------------------------------------------------------- params
     def init(self, seed: int = 0, device: DeviceLike = None,
@@ -426,19 +484,35 @@ class LM:
         raise ValueError(f"remat {mode!r} is not none, dots or full")
 
     def _embed_in(self, params, tokens):
+        """Sharded tokens: on each rank's rows, the table gathered."""
         cfg = self.cfg
-        x = L.embed(params["embed"], tokens, cfg.compute_dtype)
-        if cfg.scale_embed:
-            # in the compute dtype, as the reference's weakly typed scalar
-            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-        return x
+
+        def local(t, p):
+            x = L.embed(p, t, cfg.compute_dtype)
+            if cfg.scale_embed:
+                # in the compute dtype, as the reference's weakly typed
+                # scalar
+                x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+            return x
+        if is_dtensor(tokens):
+            return constrain(on_row_shards(local, tokens, params["embed"],
+                                           gather_last=False))
+        return local(tokens, params["embed"])
 
     def _unembed(self, params, x, table=None):
+        """The final norm and the logits; a sharded x on each rank's rows,
+        the norm and the table gathered."""
         cfg = self.cfg
         if table is None:
             table = params["embed" if cfg.tie_embeddings else "unembed"]
-        x = L.apply_norm(params["final_norm"], x, cfg.norm_eps)
-        return L.unembed(table, x, softcap=cfg.logit_softcap)
+
+        def local(xl, p):
+            xl = L.apply_norm(p[0], xl, cfg.norm_eps)
+            return L.unembed(p[1], xl, softcap=cfg.logit_softcap)
+        if is_dtensor(x):
+            return constrain(on_row_shards(
+                local, x, (params["final_norm"], table)))
+        return local(x, (params["final_norm"], table))
 
     def _prefixed(self, x, batch) -> Tuple[torch.Tensor, int]:
         """x (B,S,d) with a VLM batch's ``img_embeds`` (B,n_img,d), cast to
@@ -503,9 +577,11 @@ class LM:
 
         step = self._maybe_remat(layer)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for spec, lp in zip(self.specs, params["layers"]):
+        for spec, lp, end in zip(self.specs, params["layers"], self.ends):
             x, a = step(spec, lp, x, enc)
             aux = aux + a
+            if end:
+                x = constrain(x)
         return self._unembed(params, x[:, n_prefix:], out_table), aux
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -526,7 +602,7 @@ class LM:
         return {"layers": [_init_cache_entry(spec, self.cfg, batch,
                                              cache_len, device, enc_len)
                            for spec in self.specs],
-                "pos": torch.zeros((batch,), dtype=torch.long,
+                "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
 
     def prefill(self, params, batch, cache_len: int):
@@ -541,28 +617,35 @@ class LM:
         x, _ = self._prefixed(x, batch)
         x, positions = self._positions_in(x)
         layers: List[Params] = []
-        for spec, lp in zip(self.specs, params["layers"]):
+        for spec, lp, end in zip(self.specs, params["layers"], self.ends):
             x, _, entry = _layer_fwd(spec, lp, x, positions, self.cfg,
                                      enc=enc, collect_cache=True,
                                      cache_len=cache_len)
             layers.append(entry)
+            if end:
+                x = constrain(x)
         logits = self._unembed(params, x[:, -1:])[:, 0]
         cache = {"layers": layers,
                  "pos": torch.full((tokens.shape[0],), x.shape[1],
-                                   dtype=torch.long, device=x.device)}
+                                   dtype=torch.int32, device=x.device)}
         return cache, logits
 
     def decode_step(self, params, cache, tokens):
         """tokens: (B,) -> (logits (B,V), new cache).  Attention layers
         write their new KV row into the cache's own tensors."""
         pos = cache["pos"]
+        # the layers index the cache with one int64 copy of the (int32)
+        # position, torch's index dtype, rather than each casting it
+        at = pos.long()
         x = self._embed_in(params, tokens[:, None])
         if self.cfg.pos_kind == "sincos":
-            x = x + _sincos(pos[:, None], self.cfg.d_model, x.dtype)
+            x = x + _sincos(at[:, None], self.cfg.d_model, x.dtype)
         layers: List[Params] = []
-        for spec, lp, lc in zip(self.specs, params["layers"],
-                                cache["layers"]):
-            x, entry = _layer_decode(spec, lp, x, lc, pos, self.cfg)
+        for spec, lp, lc, end in zip(self.specs, params["layers"],
+                                     cache["layers"], self.ends):
+            x, entry = _layer_decode(spec, lp, x, lc, at, self.cfg)
             layers.append(entry)
+            if end:
+                x = constrain(x)
         logits = self._unembed(params, x[:, 0])
         return logits, {"layers": layers, "pos": pos + 1}

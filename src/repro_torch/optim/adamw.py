@@ -15,6 +15,12 @@ at a time, so an update holds a few hundred megabytes of temporaries
 rather than a second copy of the state (recurrentgemma-2b's is 35 GB).
 A caller that stops an update part way holds a state that is partly
 updated (``launch/train.py`` then saves no checkpoint of it).
+
+A sharded state (DTensors, ``launch/steps.py``) updates each leaf on its
+local shards: the gradient redistributed to its parameter's placements
+first (a no-op when ``grad_specs`` anchored it), the moments on the
+parameter's placements, the step's scalars replicated; the update is
+elementwise, so each rank's shard gets what the whole tensor would.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch._dtensor import is_dtensor
 from repro_torch.models.model import tensors, tree_map
 
 #: elements of a leaf updated at once
@@ -97,9 +104,20 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
     c1 = 1.0 - torch.pow(cfg.b1, steps)
     c2 = 1.0 - torch.pow(cfg.b2, steps)
 
+    scale, c1, c2, lr_l = (_local(t) for t in (scale, c1, c2, lr))
+
     def leaf(g, m, v, p):
+        if is_dtensor(p):
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            local_leaf(g.to_local(), m.to_local(), v.to_local(),
+                       p.to_local())
+            return p, m, v
+        return local_leaf(g, m, v, p)
+
+    def local_leaf(g, m, v, p):
         for sl in _row_slices(p):
-            new = _update(g[sl], m[sl], v[sl], p[sl], scale, c1, c2, lr,
+            new = _update(g[sl], m[sl], v[sl], p[sl], scale, c1, c2, lr_l,
                           cfg, decay)
             for dst, src in zip((p, m, v), new):
                 dst[sl].copy_(src)
@@ -115,6 +133,12 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
 
     return (rebuild(0), {"m": rebuild(1), "v": rebuild(2), "step": step},
             {"grad_norm": gnorm})
+
+
+def _local(t):
+    """A replicated DTensor scalar's value as a plain tensor; anything
+    else as it is."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def _row_slices(p: torch.Tensor):
