@@ -415,6 +415,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import card_pool  # noqa: E402
+
 #: published peaks of one H100 SXM (NVIDIA data sheet, dense, 700 W), and
 #: the work formulas every bound divides by them, from the package
 from repro_torch.distributed.roofline import (  # noqa: E402
@@ -1041,6 +1043,7 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     pipeline.FitExecutor.MAX_LANES = n_exp
     kgp.gp_nll_launches.reset()
     kgp.gp_ei_launches.reset()
+    pool0 = card_pool.stats()
     t0 = time.perf_counter()
     exps = [client.create_experiment(CreateExperiment(config=ExperimentConfig(
         name=f"cnn-{i}", budget=budget, parallel=parallel, optimizer="gp",
@@ -1058,6 +1061,7 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
                 "gp_ei": kgp.gp_ei_launches.count}
     statuses = [client.status(e) for e in exps]
     executor = pipeline.executor_snapshot() or {}
+    handoffs = pool_delta(pool0)
     free_card("service: workers joined")
     client.close()
     pipeline.FitExecutor.MAX_LANES = None
@@ -1073,7 +1077,8 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
                 ("hits", "misses", "coalesced", "prefilled",
                  "batched_prefilled", "sparse_prefilled", "maintained",
                  "prewarmed", "invalidated")} for st in statuses],
-         refit=[st.pump.get("refit") for st in statuses])
+         refit=[st.pump.get("refit") for st in statuses],
+         card_pool=handoffs)
     check(not errors, f"workers failed: {errors[:3]}")
     check(not any(t.is_alive() for t in threads), "workers did not finish")
     for st in statuses:
@@ -1101,6 +1106,28 @@ def phase_service(budget: int = 300, parallel: int = 15, n_exp: int = 4):
     check(executor.get("lanes", 0) > executor.get("batched", 0),
           "no refit dispatch co-batched two experiments")
     return launches
+
+
+def phase3_outside_rise() -> dict:
+    """The rise of memory held outside PyTorch's allocator across phase 3
+    (the service, 3b, 3c and 3d): the ``card_memory`` line "after phase
+    3d" less "service: before its construction", and its share a phase,
+    beside the threads of each kind that ran card work: the GP's fixed
+    set (``repro_torch.card_pool``: the fit executor's workers and the
+    pool's own threads) and 3b's CNN trial threads."""
+    from repro_torch import card_pool
+    at = {line["at"]: line["outside_gb"] for line in RESULTS["card_memory"]}
+    marks = ("service: before its construction", "after phase 3",
+             "after phase 3b", "after phase 3c", "after phase 3d")
+    steps = {f"{a} -> {b}": at[b] - at[a] for a, b in zip(marks, marks[1:])}
+    workers = RESULTS["service"][-1]["executor"].get("workers", 0)
+    out = dict(rise_gb=at[marks[-1]] - at[marks[0]], by_phase_gb=steps,
+               before_gb=at[marks[0]], after_gb=at[marks[-1]],
+               gp_threads=dict(executor_workers=workers,
+                               card_pool=card_pool.THREADS),
+               cnn_trial_threads=RESULTS["hpo"][-1]["trial_threads"])
+    emit("phase3_outside_rise", **out)
+    return out
 
 
 # -------------------------------------------------- phase 2: thread probe
@@ -1236,23 +1263,37 @@ def cnn_trial(a, ctx) -> float:
                 f"reserved={torch.cuda.max_memory_reserved()}")
 
 
+def pool_delta(before: dict) -> dict:
+    """The GP's hand-offs to its fixed threads since ``before``
+    (``card_pool.stats``): count, seconds the callers waited, seconds
+    of that queued, and the mean wait in ms."""
+    now = card_pool.stats()
+    d = {k: now[k] - before[k] for k in now}
+    d["mean_wait_ms"] = d["waited_s"] * 1e3 / max(1, d["handoffs"])
+    return d
+
+
 class CNNTrials:
     """``train_trial`` in this process; it keeps each run's steps and
     wall seconds, where the run ends (a completed trial, or one stopped at
-    a report)."""
+    a report), its thread's CPU seconds, and the threads that ran one
+    (each keeps a cuBLAS and a cuDNN handle on the card)."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self.steps, self.seconds = 0, 0.0
+        self.steps, self.seconds, self.cpu_seconds = 0, 0.0, 0.0
+        self.threads = set()        # threads that ran a trial on the card
 
     def __call__(self, a, ctx) -> float:
-        done, t0 = [0], time.perf_counter()
+        done, t0, c0 = [0], time.perf_counter(), time.thread_time()
         try:
             return train_trial(a, ctx, done)
         finally:
             with self._lock:
                 self.steps += done[0]
                 self.seconds += time.perf_counter() - t0
+                self.cpu_seconds += time.thread_time() - c0
+                self.threads.add(threading.get_ident())
 
 
 class TimedClient:
@@ -1328,6 +1369,70 @@ class CardSampler:
         self._smi.terminate()
         self.util = [int(v) for v in self._smi.communicate(timeout=30)[0]
                      .split() if v.isdigit()]
+
+
+#: thread name prefixes that ``thread_cpu_by_kind`` groups by
+THREAD_KINDS = ("trial-", "sched-", "suggest-pump-", "fit-exec-",
+                card_pool.PREFIX)
+
+
+def thread_cpu() -> dict:
+    """This process's threads' CPU seconds (``/proc/self/task``), by
+    thread id -> (its Python name, else its OS name; seconds)."""
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/stat") as f:
+                head, rest = f.read().rsplit(")", 1)
+        except OSError:
+            continue
+        fields = rest.split()
+        out[int(tid)] = (names.get(int(tid), head.split("(", 1)[1]),
+                         (int(fields[11]) + int(fields[12])) / tick)
+    return out
+
+
+def thread_cpu_by_kind(before: dict, after: dict) -> dict:
+    """CPU seconds between two ``thread_cpu`` readings by kind of thread
+    (a ``THREAD_KINDS`` prefix, else the name less its number), largest
+    first; threads that ended in between are missing, and their seconds
+    are in the process's total."""
+    kinds: dict = {}
+    for tid, (name, sec) in after.items():
+        kind = next((k.rstrip("-") for k in THREAD_KINDS
+                     if name.startswith(k)), re.sub(r"[-_]?\d+$", "", name))
+        s0 = before[tid][1] if tid in before else 0.0
+        kinds[kind] = kinds.get(kind, 0.0) + sec - s0
+    return dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
+
+
+class GilProbe:
+    """A thread that sleeps 1 ms at a time while a phase runs: how much
+    later than that it runs again is how long it waited for the GIL (and
+    for a core)."""
+
+    def __init__(self):
+        self.late_ms: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="gil-probe")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            t0 = time.perf_counter()
+            time.sleep(0.001)
+            self.late_ms.append((time.perf_counter() - t0) * 1e3 - 1.0)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        late = np.asarray(self.late_ms or [0.0])
+        return {"samples": len(self.late_ms), "mean": float(late.mean()),
+                **{f"p{q}": float(np.percentile(late, q))
+                   for q in (50, 90, 99)}}
 
 
 class RefitPairing:
@@ -1426,12 +1531,14 @@ class RefitPairing:
             self._armed.clear()
 
 
-def phase_hpo():
+def phase_hpo(gil_probe: bool = False):
     """The paper's §4 run through ``Orchestrator.run``: two experiments of
     ``examples/hpo_cnn.py`` at ``--paper`` scale at once, on one
     orchestrator (one ``LocalClient``, so their refits co-batch), each
     trial training the CNN on its lease's card.  The kernels' launch
-    counters are zeroed just before and read just after."""
+    counters are zeroed just before and read just after.  With
+    ``gil_probe`` a ``GilProbe`` runs beside (it costs the phase about a
+    tenth of a core and adds to the contention it reads)."""
     from repro_torch.api import pipeline
     from repro_torch.core import (ExperimentConfig, Orchestrator, Param,
                                   Resources, Space)
@@ -1466,10 +1573,13 @@ def phase_hpo():
     kgp.gp_nll_launches.reset()
     kgp.gp_ei_launches.reset()
     pairing.start()
+    pool0 = card_pool.stats()
     # the card's utilization and the process's CPU time: where the run's
     # time goes (the service is not traced: a profiler slows the
     # host-bound loop it would measure)
     sampler = CardSampler({})
+    gil = GilProbe() if gil_probe else None
+    tcpu0 = thread_cpu()
     cpu0 = time.process_time()
     t0 = time.perf_counter()
     deadline = time.monotonic() + HPO_TIMEOUT_S
@@ -1481,10 +1591,14 @@ def phase_hpo():
             orch.wait(exp, timeout=max(1.0, deadline - time.monotonic()))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        cores = (time.process_time() - cpu0) / wall
+        cpu = time.process_time() - cpu0
+        cores = cpu / wall
+        tcpu = thread_cpu_by_kind(tcpu0, thread_cpu())
     finally:
         sampler.stop()
+        gil_late = gil.stop() if gil else None
     util = sampler.util
+    handoffs = pool_delta(pool0)
     launches = {"gp_nll": kgp.gp_nll_launches.count,
                 "gp_ei": kgp.gp_ei_launches.count}
     peak = torch.cuda.max_memory_allocated()
@@ -1518,9 +1632,11 @@ def phase_hpo():
     emit("hpo", experiments=len(exps), budget=HPO_BUDGET,
          parallel=HPO_PARALLEL, steps=HPO_STEPS, wall_s=wall,
          trials_per_s=n_obs / wall, train_steps=trials.steps,
+         train_steps_per_s=trials.steps / wall,
          gpu_util_pct=sum(util) / max(1, len(util)),
          gpu_util_samples=len(util), host_cores=cores,
          device_mib_by_process=sampler.apps_mib, trial_s=trials.seconds,
+         trial_cpu_s=trials.cpu_seconds,
          slot_busy=trials.seconds / (wall * HPO_PARALLEL * len(exps)),
          **percentiles_ms(client.lat),
          suggests=len(client.lat), empty_suggests=client.empty,
@@ -1531,12 +1647,14 @@ def phase_hpo():
          asha=list(outcomes.values()), launches=dict(launches),
          executor=executor, pairing_tries=pairing.tries,
          pairing_paired=pairing.paired, pairing_held_s=pairing.held_s,
-         peak_gb=peak / 1e9,
+         peak_gb=peak / 1e9, trial_threads=len(trials.threads),
          pump=[{k: p.get(k) for k in
                 ("hits", "misses", "coalesced", "prefilled",
                  "batched_prefilled", "maintained", "invalidated")}
                for p in pumps.values()],
-         refit=[p.get("refit") for p in pumps.values()])
+         refit=[p.get("refit") for p in pumps.values()],
+         card_pool=handoffs, cpu_s=cpu, thread_cpu_s=tcpu,
+         gil_late_ms=gil_late)
     check(not alive, f"experiments still running after {HPO_TIMEOUT_S} s")
     ids = []
     for exp, st in statuses.items():
@@ -4636,6 +4754,9 @@ DRYRUN_CUT = ("xlstm-125m train_4k and prefill_32k (its sLSTM steps 4096 "
               "2x16x16 cell but recurrentgemma-2b train_4k")
 DRYRUN_WORKERS = 7
 DRYRUN_TIMEOUT_S = 400
+#: 9a's wall time for these 39 cells before the tracker of live storage
+#: bytes ran around each step (H100 80GB HBM3, 700.00 W)
+DRYRUN_WALL_UNTRACKED = 42.2
 #: 9b: 8b's step (recurrentgemma-2b, full width and depth, batch 1 x
 #: 3000, lr 3e-4 with 2 warmup steps of 4) sharded over a one-card mesh,
 #: then ``SHARD_WARM`` timed steps and one under the cost analyser; the
@@ -4643,6 +4764,15 @@ DRYRUN_TIMEOUT_S = 400
 #: for bit, relative to the largest parameter
 SHARD_WARM = 3
 SHARD_LIMIT = 1e-6
+#: 9b's memory: the tracker's peak of the counted step against the
+#: allocator's peak of the same step, and the same step's peak on meta
+#: tensors at world size 1 against the card's tracker (relative); and
+#: the step's rise, the tracker's (its peak less the bytes registered
+#: before the step) against the allocator's (its peak less what it held
+#: before the step): the part of the peak the tracker measures itself
+SHARD_MEM_LIMIT = 0.10
+SHARD_META_LIMIT = 0.01
+SHARD_RISE_LIMIT = 0.02
 #: 9c: 4 gloo ranks on a (2, 2) mesh, reduced configs in float32, 2
 #: AdamW steps of batch 4 x 32, against the same steps unsharded
 SHARD_RANK_ARCHS = ("recurrentgemma-2b", "granite-moe-3b-a800m")
@@ -4676,9 +4806,12 @@ def dryrun_cell(cell) -> dict:
 
 def phase_dryrun():
     """9a: the dry run (host, fake ranks): every cell of ``DRYRUN_CELLS``
-    ``ok`` or skipped with the reference's reason, and command-r-plus-
-    104b ``train_4k``'s argument bytes a device equal to ``sharded_bytes``
-    of its state recomputed here."""
+    ``ok`` or skipped with the reference's reason, each ``ok`` cell's
+    memory (the tracker's peak, output, alias and temp bytes a device)
+    with its peak at or above its argument bytes and peak = argument +
+    output - alias + temp, and command-r-plus-104b ``train_4k``'s
+    argument bytes a device equal to ``sharded_bytes`` of its state
+    recomputed here, its peak beside them."""
     import concurrent.futures as cf
     import multiprocessing as mp
     from repro_torch.configs import get_config
@@ -4698,9 +4831,21 @@ def phase_dryrun():
         check(rec.get("skipped", False) == (not ok)
               and rec.get("skip_reason", "") == reason,
               f"dry run {arch} {shape}: skip {rec.get('skip_reason')}")
+        if not rec.get("skipped"):
+            mem = rec["memory"]
+            check(mem["peak_memory_in_bytes"]
+                  >= mem["argument_size_in_bytes"]
+                  == rec["arg_bytes_per_device"]
+                  and mem["peak_memory_in_bytes"] == (
+                      mem["argument_size_in_bytes"]
+                      + mem["output_size_in_bytes"]
+                      - mem["alias_size_in_bytes"]
+                      + mem["temp_size_in_bytes"]),
+                  f"dry run {arch} {shape}: memory {mem}")
         emit("dryrun_cell", arch=arch, shape=shape, mesh=rec["mesh"],
              skipped=rec.get("skipped", False),
              **({} if rec.get("skipped") else dict(
+                 memory=rec["memory"],
                  dominant=rec["roofline"]["dominant"],
                  roofline_fraction=rec["roofline"].get("roofline_fraction"),
                  useful_ratio=rec["roofline"].get("useful_ratio"),
@@ -4720,7 +4865,10 @@ def phase_dryrun():
           f"command-r train_4k: {got['arg_bytes_per_device']} argument "
           f"bytes a device, its state's sharded_bytes {want}")
     emit("dryrun", cells=len(recs), workers=DRYRUN_WORKERS, wall_s=wall,
-         cut=DRYRUN_CUT, command_r_train_arg_bytes=want,
+         wall_s_untracked=DRYRUN_WALL_UNTRACKED, cut=DRYRUN_CUT,
+         command_r_train_arg_bytes=want,
+         command_r_train_memory=got["memory"],
+         memory_notes=got["memory_notes"],
          trace_s_sum=sum(r.get("trace_s", 0.0) for r in recs))
     return recs
 
@@ -4738,12 +4886,14 @@ def shard_train_run(cfg, dev, batches, opt_cfg, schedule, warm: int,
     unsharded step of ``init_train_state(cfg, 0)`` on ``batches[0]``;
     then the same state sharded over a one-rank mesh (``state_specs``,
     ``batch_specs``, ``activation_sharding``, ``grad_specs``) through the
-    same step, ``warm`` timed steps and one under the cost analyser ->
-    a dict of the hold, the launches, the times and the cost."""
+    same step, ``warm`` timed steps and one under the cost analyser and
+    the tracker of live storage bytes (on the card, the allocator's peak
+    of that step beside it) -> a dict of the hold, the launches, the
+    times, the cost and the memory."""
     import torch.distributed as dist
     from torch.distributed.tensor.experimental import implicit_replication
     from repro_torch.configs.registry import input_specs
-    from repro_torch.distributed import cost
+    from repro_torch.distributed import cost, memory
     from repro_torch.distributed.act_sharding import activation_sharding
     from repro_torch.distributed.auto_shard import Spec, shard_tree
     from repro_torch.launch import steps as S
@@ -4776,8 +4926,9 @@ def shard_train_run(cfg, dev, batches, opt_cfg, schedule, warm: int,
         _, sstep = S.make_train_step(cfg, opt_cfg, schedule,
                                      grad_specs=specs["params"])
 
-        def run(t):
-            batch = shard_tree(batches[t], mesh, b_specs)
+        def run(t, batch=None):
+            if batch is None:
+                batch = shard_tree(batches[t], mesh, b_specs)
             with implicit_replication(), \
                     activation_sharding(Spec(tok[0], tok[1])):
                 return sstep(state, batch)
@@ -4803,20 +4954,38 @@ def shard_train_run(cfg, dev, batches, opt_cfg, schedule, warm: int,
             state, m = run(t)
             sync()
             ms.append((time.perf_counter() - t0) * 1e3)
-        with cost.counting() as counter:
-            state, m = run(warm + 1)
+        # the counted step, under the cost analyser and the tracker of
+        # live storage bytes, its batch placed first (live, not counted
+        # as an argument), against the allocator's own peak of the step
+        batch = shard_tree(batches[warm + 1], mesh, b_specs)
+        batch_bytes = sum(t.to_local().untyped_storage().nbytes()
+                          for t in batch.values())
+        sync()
+        alloc = {}
+        if dev.type == "cuda":
+            alloc["earlier_peak"] = torch.cuda.max_memory_allocated()
+            alloc["before"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        with cost.counting() as counter, \
+                memory.tracking(state, live=batch) as tracker:
+            state, m = run(warm + 1, batch)
+            tracker.add_outputs((state, m))
             sync()
-        peak = (torch.cuda.max_memory_allocated() / 1e9
+        if dev.type == "cuda":
+            alloc["peak"] = torch.cuda.max_memory_allocated()
+        mem = tracker.result()
+        peak = (max(alloc["earlier_peak"], alloc["peak"]) / 1e9
                 if dev.type == "cuda" else None)
         mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        del state, m
+        del state, m, batch
     finally:
         dist.destroy_process_group()
     return dict(loss=loss, want_loss=want_loss, launches=launches,
                 bit_equal=first is None and loss == want_loss,
                 first_differing_leaf=first, rel_err=worst / max(mag, 1e-30),
                 warm_ms=ms, cost=counter.result(), peak_gb=peak,
-                mesh=mesh_shape, tokens=B * S_)
+                mesh=mesh_shape, tokens=B * S_, memory=mem,
+                batch_bytes=batch_bytes, allocator=alloc)
 
 
 def phase_shard_train():
@@ -4824,8 +4993,8 @@ def phase_shard_train():
     its loss and updated parameters equal the unsharded step's bit for
     bit (else within ``SHARD_LIMIT`` of the largest, the first differing
     leaf named), 8b's launches a step (so ``local_map`` reached the
-    kernels), and its cost analyser's bound no more than the measured
-    warm step."""
+    kernels), its cost analyser's bound no more than the measured warm
+    step, and its memory (``shard_memory``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.distributed.roofline import roofline_terms
@@ -4852,6 +5021,7 @@ def phase_shard_train():
           f"sharded step: leaf {r['first_differing_leaf']} first differs, "
           f"{r['rel_err']} of the largest parameter; loss {r['loss']} vs "
           f"{r['want_loss']}")
+    mem = shard_memory(cfg, r)
     n = cfg.param_count()
     model_flops = 6.0 * n * r["tokens"]
     terms = roofline_terms(r["cost"], r["cost"]["ici_bytes"],
@@ -4873,8 +5043,64 @@ def phase_shard_train():
          cost={k: r["cost"][k] for k in ("flops", "bytes accessed",
                                          "ici_bytes", "collective_counts",
                                          "kernels", "aten_ops", "top_ops")},
-         terms=terms)
+         terms=terms, memory=mem)
     return r["launches"]
+
+
+def shard_memory(cfg, r) -> dict:
+    """9b's memory checks: (i) the tracker's peak of the counted sharded
+    step on the card within ``SHARD_MEM_LIMIT`` of the allocator's peak
+    of the same step, and the step's rise (peak less what was live before
+    it) within ``SHARD_RISE_LIMIT`` of the allocator's rise: the
+    arguments, about 60% of the peak, are counted by construction, so the
+    rise is what holds the tracker's own counting; (ii) the same step on
+    meta tensors at world size 1 through the dry run's code path
+    (``dryrun.measure``: a fake group of one, this config, batch 1 x
+    3000) within ``SHARD_META_LIMIT`` of (i)'s tracker.  Prints them, the
+    bytes the tracker does not see and what they are."""
+    from repro_torch.distributed import memory
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.common import ShapeSpec
+    card, alloc = r["memory"], r["allocator"]
+    shape = ShapeSpec("shard", TRAIN["seq"], TRAIN["batch"], "train")
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        meta = dryrun.measure(cfg, shape, make_local_mesh(
+            (1, 1), device_type="cpu"))["memory"]
+    meta_s = time.perf_counter() - t0
+    tracked = card["peak_memory_in_bytes"]
+    registered = card["argument_size_in_bytes"] + r["batch_bytes"]
+    vs_alloc = tracked / alloc["peak"] - 1.0
+    rise, alloc_rise = tracked - registered, alloc["peak"] - alloc["before"]
+    rise_vs_alloc = rise / alloc_rise - 1.0
+    vs_meta = meta["peak_memory_in_bytes"] / tracked - 1.0
+    out = dict(card_tracker=card, meta_world1=meta, meta_s=meta_s,
+               allocator_peak=alloc["peak"],
+               allocator_before=alloc["before"],
+               tracker_vs_allocator=vs_alloc, tracker_rise=rise,
+               allocator_rise=alloc_rise,
+               rise_vs_allocator=rise_vs_alloc, meta_vs_card=vs_meta,
+               limits={"tracker_vs_allocator": SHARD_MEM_LIMIT,
+                       "rise_vs_allocator": SHARD_RISE_LIMIT,
+                       "meta_vs_card": SHARD_META_LIMIT},
+               unseen_bytes=alloc["peak"] - tracked,
+               unseen=dict(
+                   live_before_the_step_outside_its_arguments=(
+                       alloc["before"] - registered),
+                   rest=memory.UNSEEN))
+    emit("shard_memory", **out)
+    check(abs(vs_alloc) <= SHARD_MEM_LIMIT,
+          f"sharded step: the tracker's peak {tracked} is {vs_alloc:+.2%} "
+          f"of the allocator's {alloc['peak']}")
+    check(abs(rise_vs_alloc) <= SHARD_RISE_LIMIT,
+          f"sharded step: the tracker's rise {rise} is {rise_vs_alloc:+.2%} "
+          f"of the allocator's {alloc_rise}")
+    check(abs(vs_meta) <= SHARD_META_LIMIT,
+          f"sharded step: the meta peak at world 1 "
+          f"{meta['peak_memory_in_bytes']} is {vs_meta:+.3%} of the card's "
+          f"tracker {tracked}")
+    return out
 
 
 def phase_shard_ranks():
@@ -5014,6 +5240,23 @@ def phase_gloo_probe():
                  mesh=mesh, exit_codes=None, first_error=str(e)[-4000:])
 
 
+def phase3_alone():
+    """The thread probe, then phases 3-3d as the whole script runs them,
+    and the rise of memory outside PyTorch's allocator across phase 3
+    (``--phase3``)."""
+    phase_thread_memory()
+    phase_service()
+    free_card("after phase 3")
+    phase_cnn()
+    phase_hpo()
+    free_card("after phase 3b")
+    phase_remote()
+    free_card("after phase 3c")
+    phase_fleet()
+    free_card("after phase 3d")
+    return phase3_outside_rise()
+
+
 def serve_phases():
     """Phases 5, 5b and 5c alone (``--serve``): the LM servers' prefill
     ms and decode tokens/s, each phase's card freed after it."""
@@ -5049,6 +5292,11 @@ def main() -> int:
     if sys.argv[1:] == ["--remote"]:
         phase_remote()
         phase_fleet()
+        print(card_line())
+        return 0
+    if sys.argv[1:] == ["--phase3"]:
+        phase_card()
+        phase3_alone()
         print(card_line())
         return 0
     if sys.argv[1:] == ["--moe"]:
@@ -5111,11 +5359,11 @@ def main() -> int:
         return 2
     card = phase_card()
     # phase 8 first: the population needs ~65 GB of an 80 GB card (8g's
-    # granite-moe-3b-a800m ~70 GB), and
-    # the later phases leave ~10-12 GB of it held outside PyTorch's
-    # allocator (a cuBLAS and a cuSOLVER handle for each thread that ran
-    # the GP on the card at once: phase_thread_memory, card_memory
-    # lines) and the allocator fragmented
+    # granite-moe-3b-a800m ~70 GB), and the later phases leave the
+    # allocator fragmented and memory held outside it (a cuBLAS and a
+    # cuSOLVER handle for each thread that ran the GP on the card, now a
+    # fixed set, repro_torch.card_pool; a cuBLAS and a cuDNN handle for
+    # each of 3b's trial threads: phase3_outside_rise)
     summary = phase_train_kernels()
     train = phase_train()
     phase_train_parity()
@@ -5123,9 +5371,9 @@ def main() -> int:
     family_layouts = phase_family_bwd()
     phase_family_parity()
     families = phase_family_train()
-    # phase 9 here, while the card holds nothing outside the allocator:
-    # after phase 6c its 59 GB step runs out of memory beside the ~15 GB
-    # that the GP threads leave held
+    # phase 9 here, while the card holds nothing outside the allocator
+    # (a run of it after phase 6c once ran out of memory beside 15.3 GB
+    # that the GP's threads held before they were confined)
     phase_dryrun()
     sharded = phase_shard_train()
     phase_shard_ranks()
@@ -5143,6 +5391,7 @@ def main() -> int:
     free_card("after phase 3c")
     fleet = phase_fleet()
     free_card("after phase 3d")
+    phase3_outside_rise()
     summary.update(phase_lm_kernels())
     phase_moe_kernels()
     launches.update(phase_serve())

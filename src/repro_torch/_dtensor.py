@@ -81,9 +81,10 @@ def on_batch_shards(fn, batched, params, outs):
     shards kept, their other dims gathered), ``params`` a tree of weights
     replicated in, each weight's gradient a pending sum over the batch
     shards.  ``outs`` names the placement of each output, in the order of
-    its flattened tree: "batch" (sharded like the first activation) or
+    its flattened tree: "batch" (sharded like the first activation),
     "mean" (a mean over the batch: each shard's mean, weighted by its
-    share of the batch, summed across the shards)."""
+    share of the batch, summed across the shards) or "sum" (each shard's
+    value summed across the shards)."""
     from torch.utils._pytree import tree_flatten
     acts = tree_flatten(batched)[0]
     return _on_shards(fn, batched, params, outs, batch_placements(acts[0]))
@@ -98,6 +99,16 @@ def on_row_shards(fn, x, params, *, gather_last: bool = True):
     never flattens two dims sharded over different mesh dims."""
     return _on_shards(fn, x, params, ["batch"],
                       row_placements(x, gather_last))
+
+
+def on_row_sums(fn, rows, n_out: int):
+    """``fn(rows, ())`` -> ``n_out`` sums over rows, on each rank's shard
+    of the leading dims of ``rows`` (a tuple of activations with the same
+    leading dims, the first one's last dim gathered): each a pending sum
+    over the row shards.  A reduction to a scalar stays on the shards
+    (a loss's backward builds no global-shape gradient on a rank)."""
+    return _on_shards(fn, rows, (), ["sum"] * n_out,
+                      row_placements(rows[0]))
 
 
 def pending_sum(bp) -> tuple:

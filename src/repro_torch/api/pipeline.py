@@ -55,6 +55,8 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from repro_torch import card_pool
+
 #: Largest ``ask`` the pipeline issues per optimizer-lock hold (pump
 #: refill ticks and coalesced miss rounds alike).  Bounds lock latency
 #: (a request arriving mid-batch waits one chunk, not one queue fill)
@@ -145,6 +147,9 @@ class FitExecutor:
 
     One instance serves the whole process (``fit_executor()``); workers
     are daemon threads, so tests and short-lived CLIs need no teardown.
+    The workers are enrolled in the GP's fixed set of threads
+    (``repro_torch.card_pool``): the GP's numerics run on them inline,
+    and every other thread's GP work is handed to that set.
     ``submit`` coalesces by key (one outstanding job per experiment,
     escalating to the highest requested priority), which bounds the
     queue at O(live experiments)."""
@@ -373,6 +378,8 @@ class FitExecutor:
             return None
 
     def _run(self) -> None:
+        # one of the GP's fixed threads: its fits and asks run here inline
+        card_pool.enroll()
         while True:
             item = self._pop()
             if item is None:

@@ -35,6 +35,11 @@ Hot-path design, as in the reference:
 * **Sparse speculative posterior** — ``sparse_posterior`` builds an exact
   GP over a subset-of-data design of at most ``SPARSE_MAX`` points, used
   only to refill the speculative prefetch queue under saturation.
+
+Every public function that computes runs on the GP's fixed set of threads
+(``repro_torch.card_pool.confined``): called from any other thread, it is
+handed to that set and the caller waits, so the card keeps library
+handles for that set only.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.card_pool import confined
 from repro_torch.device import resolve
 from repro_torch.kernels import _build as _kbuild
 from repro_torch.kernels import ops as _kops
@@ -148,6 +154,7 @@ def to_numpy(obj) -> dict:
 
 
 # ------------------------------------------------------------- kernel
+@confined
 def matern52(a, b, params: GPParams) -> torch.Tensor:
     """Matérn-5/2 ARD cross-covariance (n,d) x (m,d) -> (n,m); a leading
     lane axis on a, b and the params broadcasts through."""
@@ -169,6 +176,7 @@ def _cho_solve(chol, y) -> torch.Tensor:
     return torch.cholesky_solve(y.unsqueeze(-1), chol).squeeze(-1)
 
 
+@confined
 def neg_mll(params: GPParams, x, y, mask) -> torch.Tensor:
     """Exact negative log marginal likelihood over the masked rows only:
     identity padding contributes log(1)=0 to the determinant and 0 to the
@@ -254,6 +262,7 @@ def _fit_lanes(params0: GPParams, x, y, mask, steps, max_steps: int = 150,
     return GPParams(*p)
 
 
+@confined
 def batched_fit(items, steps=150, bucket: Optional[int] = None,
                 device=None) -> list:
     """Fit k experiments' GP hyperparameters in ONE lane-batched loop.
@@ -335,6 +344,7 @@ def _pad(x: np.ndarray, y: np.ndarray, bucket: int, device):
     return t(xp), t(yp), t(mask)
 
 
+@confined
 def fit_gp(x: np.ndarray, y: np.ndarray, steps: int = 150,
            params0: Optional[GPParams] = None,
            bucket: Optional[int] = None, device=None) -> GPPosterior:
@@ -363,6 +373,7 @@ def fit_gp(x: np.ndarray, y: np.ndarray, steps: int = 150,
     return _posterior(p, xp, ynp, mask, _leaf(mean, dev), _leaf(std, dev))
 
 
+@confined
 def make_posterior(params: GPParams, x: np.ndarray, y: np.ndarray,
                    y_mean=None, y_std=None, bucket: Optional[int] = None,
                    device=None) -> GPPosterior:
@@ -397,6 +408,7 @@ def sparse_subset(n: int, best_idx: int, m: int = SPARSE_MAX) -> np.ndarray:
     return np.unique(np.concatenate([[int(best_idx)], old, recent]))
 
 
+@confined
 def sparse_posterior(params: GPParams, x: np.ndarray, y: np.ndarray,
                      m: int = SPARSE_MAX, extra: int = 0, device=None
                      ) -> Tuple[GPPosterior, np.ndarray]:
@@ -417,6 +429,7 @@ def sparse_posterior(params: GPParams, x: np.ndarray, y: np.ndarray,
 
 
 # ---------------------------------------------------------------- prewarm
+@confined
 def prewarm_bucket(d: int, bucket: int, fit_steps=(), k_pads=(),
                    n_cand: int = 64, fit_lanes=(), select_lanes=(),
                    device=None) -> None:
@@ -441,6 +454,7 @@ def _like(a, post: GPPosterior) -> torch.Tensor:
     return _leaf(a, post.x.device)
 
 
+@confined
 @torch.no_grad()
 def predict(post: GPPosterior, xq) -> Tuple[torch.Tensor, torch.Tensor]:
     """Posterior mean/stddev at query points (m,d) — in raw y units."""
@@ -453,6 +467,7 @@ def predict(post: GPPosterior, xq) -> Tuple[torch.Tensor, torch.Tensor]:
     return mu * post.y_std + post.y_mean, torch.sqrt(var) * post.y_std
 
 
+@confined
 @torch.no_grad()
 def expected_improvement(post: GPPosterior, xq, best,
                          xi: float = 0.01) -> torch.Tensor:
@@ -497,6 +512,7 @@ def _append_norm(post: GPPosterior, xn, yn) -> GPPosterior:
                        post.y_mean, post.y_std)
 
 
+@confined
 @torch.no_grad()
 def append_point(post: GPPosterior, xn, y_raw) -> GPPosterior:
     """Rank-1 fold of a real observation (raw y units)."""
@@ -504,6 +520,7 @@ def append_point(post: GPPosterior, xn, y_raw) -> GPPosterior:
                         (_like(y_raw, post) - post.y_mean) / post.y_std)
 
 
+@confined
 @torch.no_grad()
 def append_lie(post: GPPosterior, xn) -> GPPosterior:
     """Constant liar: pin a pending suggestion at its posterior mean."""
@@ -531,6 +548,7 @@ def _select_scan(post: GPPosterior, cand, best, k: int):
     return torch.stack(picks), post
 
 
+@confined
 def select_batch(post: GPPosterior, cand, best,
                  k: int) -> Tuple[np.ndarray, GPPosterior]:
     """Pick k batch points by greedy q-EI with constant-liar updates.
@@ -637,6 +655,7 @@ def _inert_posterior(b: int, d: int, device) -> GPPosterior:
                        torch.ones((), dtype=DTYPE, device=device))
 
 
+@confined
 def batched_select(items, k_pad: int = SELECT_PAD) -> list:
     """Run k experiments' q-EI batch selections in ONE lane-batched scan.
 

@@ -12,6 +12,8 @@ from typing import Optional, Set, Union
 
 import torch
 
+from repro_torch import card_pool
+
 DeviceLike = Optional[Union[str, torch.device]]
 
 _LINALG_LOCK = threading.Lock()
@@ -19,13 +21,18 @@ _LINALG_READY: Set[torch.device] = set()
 
 
 def _load_cuda_linalg(device: torch.device) -> None:
-    """Run each CUDA linear-algebra op the GP uses once, under a lock.
-    PyTorch loads its CUDA linear-algebra kernels lazily at the first
-    call of such an op, and that first call fails ("lazy wrapper should
-    be called at most once") when a second thread races through it — as
-    the suggestion pumps and fit-executor workers do on a fresh process."""
-    if device in _LINALG_READY:
-        return
+    """Run each CUDA linear-algebra op the GP uses once, under a lock, on
+    one of the GP's threads (``card_pool``: the library handles it
+    creates stay with that set).  PyTorch loads its CUDA linear-algebra
+    kernels lazily at the first call of such an op, and that first call
+    fails ("lazy wrapper should be called at most once") when a second
+    thread races through it — as the GP's threads would on a fresh
+    process."""
+    if device not in _LINALG_READY:
+        card_pool.run(_load_linalg, device)
+
+
+def _load_linalg(device: torch.device) -> None:
     with _LINALG_LOCK:
         if device in _LINALG_READY:
             return

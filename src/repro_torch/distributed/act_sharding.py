@@ -21,15 +21,20 @@ The reference's anchors inside a layer (its dense outputs, the MoE
 dispatch, the recurrent carries) anchor the batch dim of regions that the
 port runs batch-locally as a whole; there they see plain tensors and do
 nothing.
+
+Every model module imports this one, so it imports nothing of the rest
+of ``repro_torch.distributed`` until a DTensor reaches an anchor.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 from repro_torch._dtensor import is_dtensor
-from repro_torch.distributed.auto_shard import Spec, placements
+
+if TYPE_CHECKING:
+    from repro_torch.distributed.auto_shard import Spec
 
 _SPEC: contextvars.ContextVar[Optional[Spec]] = contextvars.ContextVar(
     "repro_torch_act_spec", default=None)
@@ -48,8 +53,9 @@ def current_spec() -> Optional[Spec]:
     return _SPEC.get()
 
 
-def _redistribute(x, spec: Spec):
-    target = tuple(placements(spec, x.device_mesh))
+def _redistribute(x, entries):
+    from repro_torch.distributed.auto_shard import placements
+    target = tuple(placements(entries, x.device_mesh))
     if target == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, target)
@@ -64,7 +70,7 @@ def constrain_at(x, batch_dim: int):
         return x
     parts = [None] * x.ndim
     parts[batch_dim] = spec[0] if len(spec) > 0 else None
-    return _redistribute(x, Spec(*parts))
+    return _redistribute(x, parts)
 
 
 def constrain(x):
@@ -76,8 +82,5 @@ def constrain(x):
         return x
     b = spec[0] if len(spec) > 0 else None
     s = spec[1] if len(spec) > 1 else None
-    if x.ndim == 2:
-        full = Spec(b, None)
-    else:
-        full = Spec(b, s, *([None] * (x.ndim - 2)))
+    full = [b, None] if x.ndim == 2 else [b, s] + [None] * (x.ndim - 2)
     return _redistribute(x, full)

@@ -125,7 +125,31 @@ def _group_size(args, kwargs) -> int:
     return 1
 
 
-class CostCounter(TorchDispatchMode):
+class LocalOps(TorchDispatchMode):
+    """A dispatch mode over the aten ops each rank runs on its local
+    tensors: a higher-order operator runs as it is, a DTensor op is
+    declined (``NotImplemented``: DTensor runs it as local ops and
+    collectives, which come back here), and an op on fake tensors
+    (DTensor's sharding propagation infers a global op's output there,
+    an op that runs nowhere) runs unseen.  Every other op runs and is
+    passed to ``local_op``."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        if any(issubclass(t, _dtensor_type()) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if not any(issubclass(t, fake_type()) for t in types):
+            self.local_op(func, args, kwargs, out)
+        return out
+
+    def local_op(self, func, args, kwargs, out) -> None:
+        raise NotImplementedError
+
+
+class CostCounter(LocalOps):
     """Per-device FLOPs, bytes and collectives of the ops run inside it
     (see the module's docstring); ``result()`` -> the reference's keys."""
 
@@ -141,20 +165,7 @@ class CostCounter(TorchDispatchMode):
         self.by_op: Dict[str, list] = {}
         self.tally = work.Tally()
 
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if isinstance(func, torch._ops.HigherOrderOperator):
-            return func(*args, **kwargs)
-        if any(issubclass(t, _dtensor_type()) for t in types):
-            return NotImplemented
-        out = func(*args, **kwargs)
-        if not any(issubclass(t, _fake_type()) for t in types):
-            # DTensor infers a global op's output shape on fake tensors:
-            # that op runs nowhere
-            self._count(func, args, kwargs, out)
-        return out
-
-    def _count(self, func, args, kwargs, out) -> None:
+    def local_op(self, func, args, kwargs, out) -> None:
         self.ops += 1
         info = _INFO.get(func)
         if info is None:
@@ -209,7 +220,9 @@ def _dtensor_type():
     return DTensor
 
 
-def _fake_type():
+def fake_type():
+    """The class of the fake tensors DTensor's sharding propagation runs
+    ops on."""
     from torch._subclasses.fake_tensor import FakeTensor
     return FakeTensor
 

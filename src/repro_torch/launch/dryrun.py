@@ -16,8 +16,8 @@ Here each cell runs once, eagerly:
   prefill, or decode over ``cache_specs``' cache, under the activation
   anchors of the batch's spec;
 * ``distributed/cost.py``'s per-device cost of that step (rank 0's
-  local ops and collectives) and the H100 roofline
-  (``distributed/roofline.py``).
+  local ops and collectives), ``distributed/memory.py``'s live bytes of
+  it, and the H100 roofline (``distributed/roofline.py``).
 
 On meta tensors the hand-written kernels run as their meta functions
 (``kernels/ops.py``: the outputs' shapes, each launch charged by its work
@@ -26,9 +26,18 @@ the plain versions' sequential loops (each record says ``"kernels":
 "meta"``); the rest of the step is the port's own PyTorch code.  Meta
 tensors, not ``FakeTensorMode``: DTensor's propagation reads a strided
 shard's local size off a tensor it makes, which a fake mode turns into a
-data-dependent value.  ``memory`` holds the
-exact ``argument_size_in_bytes``; an eager run has no buffer assignment,
-so there is no peak: the record says why.  On 2x16x16 the state's specs
+data-dependent value.
+
+``memory`` holds the reference's ``memory_analysis()`` keys, a device:
+``argument_size_in_bytes`` is the state's exact ``sharded_bytes`` (the
+batch is live but not counted there); the output, alias, temp and peak
+bytes come from the tracker of live local-shard storage
+(``distributed/memory.py``) around the step, rank 0's shards, with temp
+= peak - argument - (output - alias).  An eager step has no compiled
+program, so ``generated_code_size_in_bytes`` is absent;
+``memory_notes`` says so and names what the tracker cannot see.
+
+On 2x16x16 the state's specs
 put ``pod`` after ``data`` in hundreds of entries, against the mesh's
 order: the cell shards those leaves in mesh order (same shard sizes,
 other rows a rank; ``auto_shard.placements``) and records how many
@@ -60,6 +69,7 @@ import torch
 from repro_torch.configs.registry import (get_config, input_specs,
                                           list_archs)
 from repro_torch.distributed import cost as C
+from repro_torch.distributed import memory as M
 from repro_torch.distributed.act_sharding import activation_sharding
 from repro_torch.distributed.auto_shard import (Spec, count_reordered,
                                                 shard_tree, sharded_bytes)
@@ -68,10 +78,6 @@ from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.common import SHAPES, shape_applicable
 from repro_torch.optim import AdamWConfig
-
-NO_PEAK = ("an eager step has no buffer assignment, and no tracker of "
-           "live local-shard bytes runs here")
-
 
 def apply_opts(cfg, opts):
     """Hillclimb knobs: comma list like 'remat=none,dtype=float32'.  The
@@ -118,9 +124,11 @@ def _inputs(cfg, shape):
 
 
 def _step(cfg, shape, mesh):
-    """The cell's state, its spec tree, a function running its one step,
-    the ambient activation spec and its 6ND / 2ND model FLOPs (before
-    dividing by the mesh) -> (arg_shapes, arg_specs, run, act, flops)."""
+    """The cell's state, its spec tree, a function placing the step's
+    arguments (-> the state's, the batch's and the step, which takes them
+    in that order), the ambient activation spec and its 6ND / 2ND model
+    FLOPs (before dividing by the mesh) -> (arg_shapes, arg_specs, make,
+    act, flops)."""
     n_params = cfg.param_count()
     n_use = cfg.active_param_count() if cfg.moe else n_params
     specs_in = input_specs(cfg, shape)
@@ -135,7 +143,7 @@ def _step(cfg, shape, mesh):
         def run():
             state = shard_tree(st_shapes, mesh, st_specs, reorder=True)
             batch = shard_tree(_inputs(cfg, shape), mesh, b_specs)
-            return lambda: step(state, batch)
+            return (state,), (batch,), step
         flops = 6.0 * n_use * shape.global_batch * shape.seq_len
         return st_shapes, st_specs, run, Spec(tok[0], tok[1]), flops
     p_shapes = S.cast_param_shapes(S.train_state_shapes(cfg)["params"],
@@ -149,7 +157,7 @@ def _step(cfg, shape, mesh):
         def run():
             params = shard_tree(p_shapes, mesh, p_specs, reorder=True)
             batch = shard_tree(_inputs(cfg, shape), mesh, b_specs)
-            return lambda: step(params, batch)
+            return (params,), (batch,), step
         flops = 2.0 * n_use * shape.global_batch * shape.seq_len
         return p_shapes, p_specs, run, Spec(tok[0], tok[1]), flops
     _, step = S.make_serve_step(cfg)
@@ -159,16 +167,38 @@ def _step(cfg, shape, mesh):
         params = shard_tree(p_shapes, mesh, p_specs, reorder=True)
         cache = shard_tree(cshapes, mesh, cspecs, reorder=True)
         tokens = shard_tree(_inputs(cfg, shape)["tokens"], mesh, tok_spec)
-        return lambda: step(params, cache, tokens)
+        return (params, cache), (tokens,), step
     flops = 2.0 * n_use * shape.global_batch
     act = Spec(tok_spec[0] if len(tok_spec) else None, None)
     return ((p_shapes, cshapes), (p_specs, cspecs), run, act, flops)
 
 
+def measure(cfg, shape, mesh) -> dict:
+    """One step of the cell (``cfg``, ``shape``) on ``mesh``, whose
+    process group is live (a fake one): the state's argument bytes a
+    device, its leaves sharded in mesh order, the step's cost (rank 0's
+    ops, ``distributed/cost.py``), its memory (rank 0's live local-shard
+    bytes, ``distributed/memory.py``), its wall seconds and its model
+    FLOPs (6ND / 2ND, before dividing by the mesh)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    arg_shapes, arg_specs, make, act, model_flops = _step(cfg, shape, mesh)
+    arg_bytes = sharded_bytes(arg_shapes, arg_specs, mesh)
+    t0 = time.perf_counter()
+    with implicit_replication(), activation_sharding(act):
+        state, batch, step = make()
+        with C.counting() as counter, \
+                M.tracking(state, live=batch) as tracker:
+            tracker.add_outputs(step(*state, *batch))
+        del state, batch
+    return dict(arg_bytes=arg_bytes,
+                reordered=count_reordered(arg_specs, mesh),
+                cost=counter.result(), memory=tracker.result(),
+                trace_s=time.perf_counter() - t0, model_flops=model_flops)
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              out_dir: pathlib.Path, opts: str = "",
              verbose: bool = True) -> dict:
-    from torch.distributed.tensor.experimental import implicit_replication
     cfg = apply_opts(get_config(arch), opts)
     shape = SHAPES[shape_name]
     mesh_name = "2x16x16" if multi_pod else "16x16"
@@ -187,27 +217,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     n_dev = 512 if multi_pod else 256
     try:
         with fake_world(n_dev):
-            mesh = make_production_mesh(multi_pod=multi_pod)
-            arg_shapes, arg_specs, make, act, model_flops = _step(
-                cfg, shape, mesh)
-            arg_bytes = sharded_bytes(arg_shapes, arg_specs, mesh)
-            reordered = count_reordered(arg_specs, mesh)
-            t0 = time.perf_counter()
-            with implicit_replication(), activation_sharding(act):
-                step = make()
-                with C.counting() as counter:
-                    step()
-            trace_s = time.perf_counter() - t0
-        cost = counter.result()
+            m = measure(cfg, shape,
+                        make_production_mesh(multi_pod=multi_pod))
+        cost, memory = m["cost"], m["memory"]
         terms = roofline_terms(cost, cost["ici_bytes"],
-                               model_flops_per_chip=model_flops / n_dev)
+                               model_flops_per_chip=m["model_flops"] / n_dev)
         rec.update(
             ok=True, n_devices=n_dev, params=cfg.param_count(),
-            active_params=cfg.active_param_count(), trace_s=trace_s,
-            kernels="meta", arg_bytes_per_device=arg_bytes,
-            reordered_leaves=reordered,
-            memory={"argument_size_in_bytes": arg_bytes,
-                    "peak_memory_in_bytes": None, "no_peak": NO_PEAK},
+            active_params=cfg.active_param_count(), trace_s=m["trace_s"],
+            kernels="meta", arg_bytes_per_device=m["arg_bytes"],
+            reordered_leaves=m["reordered"],
+            memory=memory, memory_notes=[M.NO_GENERATED_CODE,
+                                         "not seen: " + M.UNSEEN],
             cost={k: cost[k] for k in ("flops", "bytes accessed",
                                        "transcendentals", "aten_ops",
                                        "top_ops")},
@@ -216,10 +237,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                          "total_ici_bytes": cost["ici_bytes"]},
             roofline=terms)
         if verbose:
-            print(f"[dryrun] {tag}: OK trace={trace_s:.1f}s "
+            print(f"[dryrun] {tag}: OK trace={m['trace_s']:.1f}s "
                   f"dominant={terms['dominant']} "
                   f"frac={terms.get('roofline_fraction', 0):.3f} "
-                  f"args/dev={arg_bytes / 2**30:.2f}GiB")
+                  f"args/dev={m['arg_bytes'] / 2**30:.2f}GiB "
+                  f"peak/dev={memory['peak_memory_in_bytes'] / 2**30:.2f}"
+                  f"GiB")
     except Exception as e:  # a failure here is a bug in the system
         rec.update(ok=False, error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc())

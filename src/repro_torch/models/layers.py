@@ -163,10 +163,11 @@ def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return F.embedding(tokens, p["table"]).to(dtype)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross entropy in float32; labels < 0 are ignored
-    (and positions where ``mask`` is not > 0)."""
+def cross_entropy_sums(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None):
+    """(summed next-token cross entropy in float32, the count of the
+    positions summed); labels < 0 are ignored (and positions where
+    ``mask`` is not > 0)."""
     logits = logits.float()
     valid = labels >= 0
     if mask is not None:
@@ -175,7 +176,15 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(logits, safe[..., None], dim=-1)[..., 0]
     nll = (logz - gold) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    return nll.sum(), valid.sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in float32 (``cross_entropy_sums``'
+    sum over its count)."""
+    nll, n = cross_entropy_sums(logits, labels, mask)
+    return nll / torch.clamp(n, min=1)
 
 
 def unembed(p: Params, x: torch.Tensor, *,

@@ -73,7 +73,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike, resolve
-from repro_torch._dtensor import is_dtensor, on_batch_shards, on_row_shards
+from repro_torch._dtensor import (is_dtensor, on_batch_shards,
+                                  on_row_shards, on_row_sums)
 from repro_torch.distributed.act_sharding import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -436,6 +437,17 @@ def _sincos(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
 # ==========================================================================
 # the model
 # ==========================================================================
+def cross_entropy(logits, labels) -> torch.Tensor:
+    """``layers.cross_entropy``; of DTensor logits, on each rank's rows
+    (on the DTensor itself, the gather's backward would build the global
+    logits' gradient on every rank)."""
+    if not is_dtensor(logits):
+        return L.cross_entropy(logits, labels)
+    nll, n = on_row_sums(lambda rows, _: L.cross_entropy_sums(*rows),
+                         (logits, labels), 2)
+    return nll / torch.clamp(n, min=1)
+
+
 class LM:
     def __init__(self, cfg: ModelConfig):
         _check_supported(cfg)
@@ -588,7 +600,7 @@ class LM:
         """batch: {"tokens", "labels"} (B,S) -> (mean cross entropy plus
         the weighted aux loss, {"ce", "aux", "tokens"})."""
         logits, aux = self.forward(params, batch)
-        ce = L.cross_entropy(logits, batch["labels"])
+        ce = cross_entropy(logits, batch["labels"])
         total = ce + self.cfg.router_aux_weight * aux
         return total, {"ce": ce, "aux": aux,
                        "tokens": (batch["labels"] >= 0).sum()}

@@ -6,7 +6,10 @@ reference's cell, on the CPU.
   subprocess: an ``ok`` record of 256 devices with H100 roofline terms,
   whose argument bytes a device equal the reference's ``sharded_bytes``
   of the same cell (the compute-dtype parameters and the decode cache
-  under the reference's specs, from ``jax.eval_shape``), exactly;
+  under the reference's specs, from ``jax.eval_shape``), exactly, and
+  whose ``memory`` has the reference's keys but generated code, the peak
+  at or above the argument bytes and peak = argument + output - alias +
+  temp;
 * a cell run in process leaves no process group behind, and skips where
   the reference skips with its reason;
 * ``apply_opts``: the reference's knobs, and ``scan=`` refused.
@@ -64,8 +67,17 @@ def test_dryrun_single_cell(tmp_path):
     assert rec["memory"]["argument_size_in_bytes"] == \
         rec["arg_bytes_per_device"] == \
         _reference_decode_arg_bytes("xlstm-125m", "long_500k")
-    assert rec["memory"]["peak_memory_in_bytes"] is None
-    assert rec["memory"]["no_peak"]
+    mem = rec["memory"]
+    assert set(mem) == {"argument_size_in_bytes", "output_size_in_bytes",
+                        "alias_size_in_bytes", "temp_size_in_bytes",
+                        "peak_memory_in_bytes"}
+    assert all(isinstance(v, int) for v in mem.values())
+    assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"]
+    assert mem["output_size_in_bytes"] > 0 and mem["temp_size_in_bytes"] > 0
+    assert mem["peak_memory_in_bytes"] == (
+        mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
+        - mem["alias_size_in_bytes"] + mem["temp_size_in_bytes"])
+    assert any("generated_code" in n for n in rec["memory_notes"])
 
 
 def test_cell_in_process_leaves_no_process_group(tmp_path):

@@ -49,6 +49,23 @@ def test_source_imports_neither_jax_nor_the_reference(path):
     assert not _FORBIDDEN.search(text), _FORBIDDEN.search(text).group(0)
 
 
+def test_importing_models_loads_no_distributed_tooling():
+    """A serving path imports the models, and the models' activation
+    anchors (``distributed.act_sharding``) load none of the sharding
+    tooling: not the compressed all-reduce, the cost analyser or the
+    sharding rules."""
+    code = ("import sys, repro_torch.models; print(sorted(m for m in "
+            "sys.modules if m in ('repro_torch.distributed.compress', "
+            "'repro_torch.distributed.cost', "
+            "'repro_torch.distributed.auto_shard')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_resolve_default_needs_cuda(monkeypatch):
     """``resolve`` and the LM's ``init`` / ``init_cache``, which resolve
     their device through it: the card by default, no CPU fall-back."""
