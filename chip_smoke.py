@@ -120,7 +120,16 @@ script exits non-zero and prints no result):
    library yardstick for attention.  Attention is held element by element
    against the float32 oracle on the same inputs, and at the serve shape
    three faults planted into the plain version (a key or the oldest tile
-   of the band missing, no window) must fail that limit.
+   of the band missing, no window) must fail that limit.  Then
+   (``flash_offsets``) ``flash_attention`` on one rank's quarter of a
+   sequence's queries at ``q_offset`` against the whole sequence's keys,
+   as a sequence-parallel step calls it, at the middle and the last
+   quarter of llava's layout (S 3328, H 56, K 8, D 128) and of
+   recurrentgemma's windowed one (S 3000, H 10, K 1, D 256, window
+   2048), bf16: held to the plain float32 version at the same offset,
+   the plain version at offset 0 planted as a fault, timed beside the
+   same call at offset 0, the plain version, SDPA (the offset band as a
+   mask) and the offset's bound; launches counted.
 4b. ``flash_attention`` at the MoE family's prefill layouts, bf16, B 4,
    S 3000, causal: granite-moe-3b-a800m's (H 24, K 8, D 64) and
    deepseek-v2-lite-16b's MLA (H = K = 16, q/k 192 and v 128 zero-padded
@@ -273,7 +282,9 @@ script exits non-zero and prints no result):
    planted fault each (dK/dV from one query head of a group, the default
    scale in MLA's place, causality flipped) failing the limit, timed
    beside the plain version, the bound and SDPA's backward (no mask,
-   ``is_causal``, ``enable_gqa``; MLA on its unpadded widths).  (f) one
+   ``is_causal``, ``enable_gqa``; MLA on its unpadded widths); and
+   ``flash_attention_bwd`` at phase 4's offset layouts, held and timed
+   as phase 4 holds the forward there.  (f) one
    ``loss_and_grads`` a family at full width and reduced depth
    (``FAMILY_HOLDS``: granite-moe 2, deepseek 2, whisper's decoder 2 over
    its 24 encoder layers, command-r 2 at seq 1024, llava 2, xlstm whole
@@ -303,7 +314,11 @@ script exits non-zero and prints no result):
    host processes: every cell ``ok`` or skipped with the reference's
    reason, command-r ``train_4k``'s argument bytes a device equal to
    ``sharded_bytes`` of its state recomputed here; each cell's dominant
-   term, roofline fraction, argument bytes and trace seconds.  (b) 8b's
+   term, roofline fraction, argument bytes and trace seconds; with the
+   sequence sharded (the batch short of the mesh), command-r-plus-104b
+   ``prefill_32k``'s bound at most ``SEQ_PREFILL_BOUND_S`` and
+   phi3-medium-14b ``decode_32k``'s peak at most ``SEQ_DECODE_PEAK_ARGS``
+   times its argument bytes, or the run fails.  (b) 8b's
    step sharded over a one-card mesh (NCCL world 1; ``state_specs``,
    ``batch_specs``, ``activation_sharding``, ``grad_specs``) from the
    same state as an unsharded step run just before: loss and parameters
@@ -317,7 +332,14 @@ script exits non-zero and prints no result):
    of the largest parameter of the same steps unsharded, a planted fault
    (each region's weight gradients taken as summed over the batch
    shards) past it, and the collectives ``CommDebugMode`` saw equal to
-   the cost analyser's count on a fake (2, 2) group; on CPU tensors,
+   the cost analyser's count on a fake (2, 2) group; the same at batch
+   2, which leaves "model" to the sequence (the step sequence-parallel),
+   with a second fault (the gathered keys' and values' gradients taken
+   as summed); and the split decode (``shard_check.run_decode_ranks``):
+   a sequence-parallel prefill and 3 decode steps over a cache sharded on
+   its slots, for global attention, the local ring buffer and MLA's
+   latent in two cache layouts, within 1e-5 of the unsharded path, the
+   chunks attended alone (never combined) past it.  On CPU tensors,
    since a gloo group's functional all-gather (DTensor's) dies on CUDA
    tensors with no code of the port (``--gloo-cuda``).
 
@@ -372,6 +394,12 @@ the card.
 builds the kernels, runs the other families' training checks (the
 backward at their layouts, their gradient holds, their train steps) and
 prints their lines and the card.
+
+    python3 chip_smoke.py --offsets        # phase 1, 4's and 8e's offsets
+
+builds the kernels, runs the flash kernels' sequence-parallel cases (a
+quarter of the queries at ``q_offset``, forward and backward:
+``flash_offsets``) and prints their lines and the card.
 
     python3 chip_smoke.py --shard          # phases 1 and 9 alone
 
@@ -3130,6 +3158,154 @@ def flash_layouts(cases, where: str):
     return layouts
 
 
+#: the sequence-parallel layouts of the flash kernels (the forward in
+#: phase 4, the backward in 8e): (name, B, S, H, K, D, window) of the
+#: whole sequence, causal, bf16: llava-next-34b's (2304 image and 1024
+#: text positions) and recurrentgemma-2b's local attention; one rank's
+#: shard is a quarter of the queries, at the quarters of
+#: ``OFFSET_QUARTERS`` (the middle and the last), against every key
+FLASH_OFFSET_LAYOUTS = (("llava", 4, 3328, 56, 8, 128, 0),
+                        ("recurrentgemma_local", 4, 3000, 10, 1, 256, 2048))
+OFFSET_QUARTERS = (2, 3)
+
+
+def offset_mask(n, S, off, window, dev):
+    """The causal (and windowed) band of queries off .. off + n - 1 over
+    keys 0 .. S - 1, as SDPA takes a mask."""
+    qp = torch.arange(off, off + n, device=dev)[:, None]
+    kp = torch.arange(S, device=dev)[None, :]
+    m = qp >= kp
+    if window:
+        m &= (qp - kp) < window
+    return m
+
+
+def flash_offsets(backward: bool = False) -> dict:
+    """Phase 4 (the forward) and 8e (``backward``): the flash kernel on a
+    quarter of the queries of each layout of ``FLASH_OFFSET_LAYOUTS`` at
+    ``q_offset`` (``OFFSET_QUARTERS``) against every key, held element by
+    element to the plain float32 version at that offset (``flash_excess``
+    / ``bwd_excess``), the plain version at offset 0 planted as a fault
+    that must fail the limit; timed beside the same call at offset 0
+    (the first quarter: its ``ms_offset0`` and bound), the plain version,
+    SDPA with the offset band as its mask, and the bound of the offset's
+    pairs (``work.flash_work`` / ``flash_bwd_work``); the case's launches
+    counted (its hold and its timed calls) -> {layout: its line}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    counter = (kfa.flash_attention_bwd_launches if backward
+               else kfa.flash_attention_launches)
+    work_fn = flash_bwd_work if backward else flash_work
+    dt = torch.bfloat16
+    f32 = lambda ts: [t.float() for t in ts]  # noqa: E731
+    layouts = {}
+    for name, B, S, H, K, D, window in FLASH_OFFSET_LAYOUTS:
+        free_card(f"flash_offset {name}")
+        n = S // 4
+        gen.manual_seed(S + H + D)
+        q_all = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+        k, v = (torch.randn((B, S, K, D), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        do_all = torch.randn((B, S, H, D), generator=gen, device=dev).to(dt)
+        kw = dict(causal=True, window=window)
+        scale = 1.0 / math.sqrt(D)
+        first = q_all[:, :n].contiguous()
+        o0, lse0 = kfa.flash_attention(first, k, v, return_lse=True, **kw)
+        do0 = do_all[:, :n].contiguous()
+        for quarter in OFFSET_QUARTERS:
+            off = quarter * n
+            at = dict(kw, q_offset=off)
+            q = q_all[:, off:off + n].contiguous()
+            launches0 = counter.count
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(backward)
+                          for t in (q, k, v))
+            mask = offset_mask(n, S, off, window, dev)
+            if not backward:
+                out = kfa.flash_attention(q, k, v, **at)
+                torch.cuda.synchronize()
+                want = ref.flash_attention_ref(*f32((q, k, v)), **at)
+                excess = flash_excess(out, want, "bfloat16")
+                abs_err = float((out.float() - want).abs().max())
+                planted = flash_excess(
+                    ref.flash_attention_ref(*f32((q, k, v)), **kw), want,
+                    "bfloat16")
+                lib_out = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+                lib_err = rel_err(lib_out.transpose(1, 2).float(), want)
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, attn_mask=mask, scale=scale,
+                    enable_gqa=True)
+                run = lambda: kfa.flash_attention(q, k, v, **at)  # noqa
+                run0 = lambda: kfa.flash_attention(  # noqa: E731
+                    first, k, v, **kw)
+                plain = lambda: ref.flash_attention_ref(  # noqa: E731
+                    q, k, v, **at)
+                del out, want, lib_out
+            else:
+                o, lse = kfa.flash_attention(q, k, v, return_lse=True, **at)
+                do = do_all[:, off:off + n].contiguous()
+                got = kfa.flash_attention_bwd(q, k, v, o, lse, do, **at)
+                torch.cuda.synchronize()
+                want = ref.flash_attention_bwd_ref(*f32((q, k, v, o)), lse,
+                                                   do.float(), **at)
+                excess = bwd_excess(got, want, "bfloat16")
+                abs_err = max(float((g.float() - w).abs().max())
+                              for g, w in zip(got, want))
+                planted = bwd_excess(ref.flash_attention_bwd_ref(
+                    *f32((q, k, v, o)), lse, do.float(), **kw), want,
+                    "bfloat16")
+                lib_o = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+                dot = do.transpose(1, 2)
+                lib = lambda: torch.autograd.grad(  # noqa: E731
+                    lib_o, (qt, kt, vt), dot, retain_graph=True)
+                lib_err = max(rel_err(g.transpose(1, 2).float(), w)
+                              for g, w in zip(lib(), want))
+                run = lambda: kfa.flash_attention_bwd(  # noqa: E731
+                    q, k, v, o, lse, do, **at)
+                run0 = lambda: kfa.flash_attention_bwd(  # noqa: E731
+                    first, k, v, o0, lse0, do0, **kw)
+                plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+                    q, k, v, o, lse, do, **at)
+                del got, want
+            check(math.isfinite(excess) and excess <= 1.0,
+                  f"flash {'bwd ' if backward else ''}{name} at offset "
+                  f"{off}: {excess} x its element-wise limit")
+            check(planted > 1.0, f"flash {name} at offset {off}: the plain "
+                  f"version at offset 0 passes ({planted})")
+            check(lib_err <= (SDPA_BWD_LIMIT if backward
+                              else SDPA_LIMIT)["bfloat16"],
+                  f"sdpa {name} at offset {off} disagrees: {lib_err}")
+            ms, ms0 = time_ms(run), time_ms(run0)
+            plain_ms, lib_ms = time_ms(plain), time_ms(lib)
+            flops, nbytes = work_fn(B, n, S, H, K, D, True, window, 2,
+                                    q_offset=off)
+            bound, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            bound0, _ = bound_ms(*work_fn(B, n, S, H, K, D, True, window, 2),
+                                 PEAK_BF16_FLOPS)
+            line = dict(layout=name, backward=backward, B=B, Sq=n, Skv=S,
+                        H=H, K=K, D=D, window=window, q_offset=off,
+                        dtype="bfloat16", tol=FLASH_TOL["bfloat16"],
+                        excess=excess, planted_offset0_excess=planted,
+                        max_abs_err=abs_err, ms=ms, ms_offset0=ms0,
+                        plain_ms=plain_ms, library_ms=lib_ms,
+                        sdpa_rel_err=lib_err, bound_ms=bound, bound_by=by,
+                        bound_ms_offset0=bound0, bound_share=bound / ms,
+                        launches=counter.count - launches0,
+                        gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            emit("flash_offset_case", **line)
+            layouts[f"{name}_q{quarter}"] = line
+            del qt, kt, vt, mask, lib, run, run0, plain
+            if backward:
+                del o, lse, do, lib_o, dot
+        del q_all, k, v, do_all, first, o0, lse0, do0
+    free_card("after flash offsets")
+    return layouts
+
+
 # ------------------------------------------------------------ phase 5c
 ENCDEC_SERVE = dict(batch=4, gen=64)
 #: arch -> (prompt length, layers served (None: all), flash_attention
@@ -4608,8 +4784,9 @@ def family_hold(arch: str, depth: int, seq: int) -> dict:
 
 def phase_family_bwd():
     """8e: ``flash_attention_bwd`` at the seven train layouts
-    (``FAMILY_BWD_CASES``, ``bwd_case``) -> {layout: its error, times,
-    bound and planted faults}."""
+    (``FAMILY_BWD_CASES``, ``bwd_case``) and at the offset layouts
+    (``flash_offsets``) -> {layout: its error, times, bound and planted
+    faults}."""
     dev = torch.device("cuda", 0)
     free_card("family_bwd")
     gen = torch.Generator(device=dev)
@@ -4621,6 +4798,7 @@ def phase_family_bwd():
             ms=line["ms"], plain_ms=line["plain_ms"],
             bound_ms=line["bound_ms"], bound_by=line["bound_by"],
             library_ms=line["sdpa_ms"], planted=line["planted_excess"])
+    layouts.update(flash_offsets(backward=True))
     return layouts
 
 
@@ -4754,6 +4932,20 @@ DRYRUN_CUT = ("xlstm-125m train_4k and prefill_32k (its sLSTM steps 4096 "
               "2x16x16 cell but recurrentgemma-2b train_4k")
 DRYRUN_WORKERS = 7
 DRYRUN_TIMEOUT_S = 400
+#: 9a's holds of the sequence-parallel step (the batch short of the mesh,
+#: the sequence over the rest): command-r-plus-104b ``prefill_32k``'s
+#: bound in seconds (the per-op design's 5.45 s and room for the causal
+#: imbalance of the last sequence shard, whose rank the dry run is) and
+#: phi3-medium-14b ``decode_32k``'s peak a device in units of its
+#: argument bytes (no rank gathers a layer's cache)
+SEQ_PREFILL_BOUND_S = 6.0
+SEQ_DECODE_PEAK_ARGS = 2.0
+#: the same two cells where each layer gathered the sequence (the commit
+#: before the sequence-parallel step, ``scripts/compare_dryrun.py``, a
+#: host run): the bound in seconds and the peak and argument bytes a
+#: device
+SEQ_PARENT = {"prefill_bound_s": 16.7563, "decode_peak_bytes": 50.36e9,
+              "decode_arg_bytes": 3.47e9}
 #: 9a's wall time for these 39 cells before the tracker of live storage
 #: bytes ran around each step (H100 80GB HBM3, 700.00 W)
 DRYRUN_WALL_UNTRACKED = 42.2
@@ -4774,9 +4966,12 @@ SHARD_MEM_LIMIT = 0.10
 SHARD_META_LIMIT = 0.01
 SHARD_RISE_LIMIT = 0.02
 #: 9c: 4 gloo ranks on a (2, 2) mesh, reduced configs in float32, 2
-#: AdamW steps of batch 4 x 32, against the same steps unsharded
+#: AdamW steps of batch 4 x 32, against the same steps unsharded; then
+#: batch 2 (``SHARD_RANK_SEQ_BATCH``), which leaves "model" to the
+#: sequence: the step sequence-parallel
 SHARD_RANK_ARCHS = ("recurrentgemma-2b", "granite-moe-3b-a800m")
 SHARD_RANK_CELL = dict(mesh=(2, 2), batch=4, seq=32, steps=2)
+SHARD_RANK_SEQ_BATCH = 2
 #: 9c's tensors: on CUDA tensors a gloo group's functional all-gather,
 #: which DTensor's redistribution issues, dies (SIGSEGV) with no code of
 #: the port at one rank and at two, while c10d's own collectives work
@@ -4855,6 +5050,27 @@ def phase_dryrun():
                  trace_s=rec["trace_s"],
                  collectives=rec["collectives"]["counts"],
                  kernels=rec["kernels"])))
+    by_cell = {c[:2]: r for c, r in zip(DRYRUN_CELLS, recs) if not c[2]}
+    pre = by_cell[("command-r-plus-104b", "prefill_32k")]
+    dec = by_cell[("phi3-medium-14b", "decode_32k")]
+    peak, args = (dec["memory"]["peak_memory_in_bytes"],
+                  dec["memory"]["argument_size_in_bytes"])
+    emit("dryrun_seq", prefill_cell="command-r-plus-104b prefill_32k",
+         prefill_bound_s=pre["roofline"]["bound_s"],
+         prefill_bound_limit_s=SEQ_PREFILL_BOUND_S,
+         prefill_flops=pre["cost"]["flops"],
+         prefill_useful_ratio=pre["roofline"].get("useful_ratio"),
+         decode_cell="phi3-medium-14b decode_32k", decode_peak_bytes=peak,
+         decode_arg_bytes=args, decode_peak_over_args=peak / args,
+         decode_peak_limit_args=SEQ_DECODE_PEAK_ARGS,
+         decode_collectives=dec["collectives"]["counts"],
+         parent=SEQ_PARENT)
+    check(pre["roofline"]["bound_s"] <= SEQ_PREFILL_BOUND_S,
+          f"command-r prefill_32k: bound {pre['roofline']['bound_s']} s > "
+          f"{SEQ_PREFILL_BOUND_S}")
+    check(peak <= SEQ_DECODE_PEAK_ARGS * args,
+          f"phi3 decode_32k: peak {peak} > {SEQ_DECODE_PEAK_ARGS} x its "
+          f"argument bytes {args}")
     cfg = get_config("command-r-plus-104b")
     shapes = S.train_state_shapes(cfg)
     pod = {"data": 16, "model": 16}
@@ -5106,45 +5322,74 @@ def shard_memory(cfg, r) -> dict:
 def phase_shard_ranks():
     """9c: 4 gloo ranks on a (2, 2) mesh, on CPU tensors (``SHARD_RANK_
     DEVICE``), reduced recurrentgemma-2b and granite-moe-3b-a800m in
-    float32: 2 sharded AdamW steps within ``shard_check.LIMIT`` of the
-    unsharded ones on every rank, a planted fault (each region's weight
-    gradients taken as summed over the batch shards) past it, and the
-    collectives ``CommDebugMode`` saw equal to the cost analyser's count
-    of the same cell on a fake (2, 2) group."""
+    float32, at batch 4 and at batch 2 (``SHARD_RANK_SEQ_BATCH``: the
+    sequence over "model"): 2 sharded AdamW steps within
+    ``shard_check.LIMIT`` of the unsharded ones on every rank, planted
+    faults (each region's weight gradients taken as summed over the
+    shards; at batch 2 also the gathered keys' and values' gradients)
+    past it, and the collectives ``CommDebugMode`` saw equal to the cost
+    analyser's count of the same cell on a fake (2, 2) group.  Then the
+    split decode (``shard_check.run_decode_ranks``): every record within
+    the limit, the chunks attended alone past it."""
     from repro_torch.configs import get_config
     from repro_torch.launch import shard_check
     from repro_torch.models.common import ShapeSpec
-    c = SHARD_RANK_CELL
     device = SHARD_RANK_DEVICE
-    for arch in SHARD_RANK_ARCHS:
-        t0 = time.perf_counter()
-        normal, fault = shard_check.run_ranks(
-            4, arch, c["mesh"], c["batch"], c["seq"], c["steps"],
-            faults=(False, True), device=device, timeout_s=RANK_TIMEOUT_S)
-        for r in normal:
-            check(r["rel_err"] <= shard_check.LIMIT,
-                  f"{arch} rank {r['rank']}: {r['rel_err']} of the largest "
-                  "parameter from the unsharded steps")
-        for r in fault:
-            check(r["rel_err"] > shard_check.LIMIT,
-                  f"{arch} rank {r['rank']}: the planted fault passes "
-                  f"({r['rel_err']})")
-        cost = shard_check.fake_cost(
-            get_config(arch).reduced(),
-            ShapeSpec("check", c["seq"], c["batch"], "train"), c["mesh"],
-            device=device)
-        check(cost["collective_counts"] == normal[0]["comms"],
-              f"{arch}: CommDebugMode saw {normal[0]['comms']}, the cost "
-              f"analyser counts {cost['collective_counts']}")
-        emit("shard_ranks", arch=arch, ranks=4, backend="gloo",
-             device=device, **c,
-             wall_s=time.perf_counter() - t0, limit=shard_check.LIMIT,
-             rel_err=[r["rel_err"] for r in normal],
-             fault_rel_err=[r["rel_err"] for r in fault],
-             losses=normal[0]["losses"],
-             plain_losses=normal[0]["plain_losses"],
-             comms=normal[0]["comms"],
-             analyser_comms=cost["collective_counts"])
+    for batch in (SHARD_RANK_CELL["batch"], SHARD_RANK_SEQ_BATCH):
+        c = dict(SHARD_RANK_CELL, batch=batch)
+        faults = (False, True) + (
+            ("gathered",) if batch == SHARD_RANK_SEQ_BATCH else ())
+        for arch in SHARD_RANK_ARCHS:
+            t0 = time.perf_counter()
+            normal, *faulty = shard_check.run_ranks(
+                4, arch, c["mesh"], c["batch"], c["seq"], c["steps"],
+                faults=faults, device=device, timeout_s=RANK_TIMEOUT_S)
+            for r in normal:
+                check(r["rel_err"] <= shard_check.LIMIT,
+                      f"{arch} batch {batch} rank {r['rank']}: "
+                      f"{r['rel_err']} of the largest parameter from the "
+                      "unsharded steps")
+            for fault in faulty:
+                for r in fault:
+                    check(r["rel_err"] > shard_check.LIMIT,
+                          f"{arch} batch {batch} rank {r['rank']}: the "
+                          f"planted fault {r['fault']} passes "
+                          f"({r['rel_err']})")
+            cost = shard_check.fake_cost(
+                get_config(arch).reduced(),
+                ShapeSpec("check", c["seq"], c["batch"], "train"),
+                c["mesh"], device=device)
+            check(cost["collective_counts"] == normal[0]["comms"],
+                  f"{arch} batch {batch}: CommDebugMode saw "
+                  f"{normal[0]['comms']}, the cost analyser counts "
+                  f"{cost['collective_counts']}")
+            emit("shard_ranks", arch=arch, ranks=4, backend="gloo",
+                 device=device, **c, seq_axes=normal[0]["seq_axes"],
+                 wall_s=time.perf_counter() - t0, limit=shard_check.LIMIT,
+                 rel_err=[r["rel_err"] for r in normal],
+                 fault_rel_err={str(f[0]["fault"]): [r["rel_err"] for r in f]
+                                for f in faulty},
+                 losses=normal[0]["losses"],
+                 plain_losses=normal[0]["plain_losses"],
+                 comms=normal[0]["comms"],
+                 analyser_comms=cost["collective_counts"])
+    t0 = time.perf_counter()
+    recs = shard_check.run_decode_ranks(faults=(False, True), device=device,
+                                        timeout_s=RANK_TIMEOUT_S)
+    for r in recs:
+        check(shard_check.decode_ok(r) != r["fault"],
+              f"split decode {r['arch']} {r['layout']} rank {r['rank']} "
+              f"(fault {r['fault']}): {r}")
+    for r in (r for r in recs if r["rank"] == 0):
+        emit("shard_decode", arch=r["arch"], layout=r["layout"],
+             fault=r["fault"], ranks=4, backend="gloo", device=device,
+             cell=r["cell"], chunk_dims=r["chunk_dims"],
+             prefill_seq_axes=r["prefill_seq_axes"],
+             prefill_rel_err=r["prefill_rel_err"],
+             decode_rel_err=r["decode_rel_err"],
+             cache_rel_err=r["cache_rel_err"], limit=r["limit"])
+    emit("shard_decode_ranks", wall_s=time.perf_counter() - t0,
+         records=len(recs))
 
 
 def gloo_probe_rank(rank: int, world: int, store: str, op: str,
@@ -5332,6 +5577,12 @@ def main() -> int:
         phase_family_train()
         print(card_line())
         return 0
+    if sys.argv[1:] == ["--offsets"]:
+        phase_card()
+        flash_offsets()
+        flash_offsets(backward=True)
+        print(card_line())
+        return 0
     if sys.argv[1:] == ["--shard"]:
         phase_card()
         phase_dryrun()
@@ -5393,12 +5644,14 @@ def main() -> int:
     free_card("after phase 3d")
     phase3_outside_rise()
     summary.update(phase_lm_kernels())
+    offsets = flash_offsets()
     phase_moe_kernels()
     launches.update(phase_serve())
     free_card("after phase 5")
     moe = phase_moe_serve()
     free_card("after phase 5b")
     layouts = flash_layouts(ENCDEC_FLASH_CASES, "4c")
+    layouts.update(offsets)
     encdec = phase_encdec_serve()
     free_card("after phase 5c")
     layouts.update(flash_layouts(VLM_FLASH_CASES, "4d"))

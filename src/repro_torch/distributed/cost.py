@@ -31,7 +31,8 @@ every iteration of its Python loops (the layers, the mLSTM chunks, the
 sLSTM time steps), and the counter sees each one.
 
 All numbers are per device: under a fake process group (the dry run) the
-counter sees rank 0's shards, which every rank's equal in shape.
+counter sees one rank's shards (the dry run's: the last rank's), which
+every rank's equal in shape.
 """
 from __future__ import annotations
 

@@ -11,9 +11,11 @@
 // Semantics copied from _flash_kernel: scores in float32 whatever the
 // input type; the scale (the caller's, _flash_kernel's 1/sqrt(D)) before
 // the softcap, the softcap before the mask; masked scores take -2^30, not
-// -inf; rows past Sq and keys past Skv are masked; query and key positions
-// both count from 0 (also when Sq != Skv); l is clamped at 1e-30 before
-// the division; out in the input type.
+// -inf; rows past Sq and keys past Skv are masked; key positions count
+// from 0 and query row i sits at position q_offset + i (q_offset 0, the
+// Pallas kernel's, also when Sq != Skv: a caller holding one shard of a
+// sequence's queries passes the shard's first position); l is clamped at
+// 1e-30 before the division; out in the input type.
 //
 // What bounds it on this card: operations.  The work is 4*D multiply-adds
 // a visible (query, key) pair a head (Q.K and P.V), 166 GFLOP at the serve
@@ -136,7 +138,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o,
              float* __restrict__ lse, int Sq, int Skv, int H, int K,
-             float scale, int causal, int window, float softcap) {
+             float scale, int causal, int window, int qo, float softcap) {
   using L = Layout<D>;
   constexpr int kCols = D / 16;  // accumulator columns a thread
   extern __shared__ float smem[];
@@ -152,9 +154,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = threadIdx.x / 16;   // rows 4g .. 4g+3 of the tile
   const int col = threadIdx.x % 16;
 
-  // the band of keys any row of this tile may see, in whole tiles
-  const int kv_lo = window ? max(0, q0 - window + 1) : 0;
-  const int kv_hi = causal ? min(q1, Skv) : Skv;
+  // the band of keys any row of this tile may see, in whole tiles (row
+  // r at position qo + r)
+  const int kv_lo = window ? max(0, qo + q0 - window + 1) : 0;
+  const int kv_hi = causal ? min(qo + q1, Skv) : Skv;
   const int t_lo = kv_lo / kBK;
   const int t_hi = (kv_hi + kBK - 1) / kBK;
 
@@ -206,8 +209,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
         float x = s[i][j] * scale;
         if (softcap != 0.0f) x = tanhf(x / softcap) * softcap;
         bool ok = kp < Skv && qp < Sq;
-        if (causal) ok = ok && qp >= kp;
-        if (window) ok = ok && (qp - kp) < window;
+        if (causal) ok = ok && qo + qp >= kp;
+        if (window) ok = ok && (qo + qp - kp) < window;
         s[i][j] = ok ? x : kNegInf;
         tmax = fmaxf(tmax, s[i][j]);
       }
@@ -257,7 +260,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Skv, int H, int K, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           int qo, float softcap, float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<D>::kBytes;
   static_assert(smem <= kMaxSmem, "tiles exceed a block's shared memory");
   if (smem > 48 * 1024) {
@@ -269,7 +272,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
   flash_kernel<D><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, Sq,
-      Skv, H, K, scale, causal, window, softcap);
+      Skv, H, K, scale, causal, window, qo, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -563,7 +566,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_v,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
                 int Skv, int H, int K, float scale, int causal, int window,
-                float softcap) {
+                int qo, float softcap) {
   using C = Cfg<D>;
   extern __shared__ unsigned char smem_raw[];
   // swizzle atoms want 1 KB alignment
@@ -577,9 +580,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kvh = h / (H / K);
   const int q0 = blockIdx.y * (kConsumers * kRows);
   const int q1 = min(q0 + kConsumers * kRows, Sq);
-  // the band of keys any row of this block may see, in whole tiles
-  const int kv_lo = window ? max(0, q0 - window + 1) : 0;
-  const int kv_hi = causal ? min(q1, Skv) : Skv;
+  // the band of keys any row of this block may see, in whole tiles (row
+  // r at position qo + r)
+  const int kv_lo = window ? max(0, qo + q0 - window + 1) : 0;
+  const int kv_hi = causal ? min(qo + q1, Skv) : Skv;
   const int t_lo = kv_lo / kRows;
   const int t_hi = max(t_lo, (kv_hi + kRows - 1) / kRows);
   const int wg = threadIdx.x / 128;
@@ -628,8 +632,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // the tiles this consumer's rows may see
     int c_lo = t_hi, c_hi = t_hi;
     if (r0 < Sq) {
-      const int lo = window ? max(0, r0 - window + 1) : 0;
-      const int hi = causal ? min(min(r0 + kRows, Sq), Skv) : Skv;
+      const int lo = window ? max(0, qo + r0 - window + 1) : 0;
+      const int hi = causal ? min(qo + min(r0 + kRows, Sq), Skv) : Skv;
       c_lo = max(t_lo, lo / kRows);
       c_hi = min(t_hi, (hi + kRows - 1) / kRows);
     }
@@ -665,8 +669,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         // scale, softcap, mask (only where the band or Skv cuts the tile)
         const int k0 = t * kRows;
         const bool cut = k0 + kRows > Skv ||
-                         (causal && k0 + kRows - 1 > r0) ||
-                         (window && r0 + kRows - 1 - k0 >= window);
+                         (causal && k0 + kRows - 1 > qo + r0) ||
+                         (window && qo + r0 + kRows - 1 - k0 >= window);
         float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -678,8 +682,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
               const int qp = row + (e >= 2 ? 8 : 0);
               const int kp = k0 + 8 * j + colq + (e & 1);
               bool ok = kp < Skv && qp < Sq;
-              if (causal) ok = ok && qp >= kp;
-              if (window) ok = ok && (qp - kp) < window;
+              if (causal) ok = ok && qo + qp >= kp;
+              if (window) ok = ok && (qo + qp - kp) < window;
               x = ok ? x : kNegInf;
             }
             sc[4 * j + e] = x;
@@ -807,7 +811,7 @@ bool make_map(CUtensorMap* map, const void* x, int B, int S, int nh) {
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Skv, int H, int K, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           int qo, float softcap, float scale, cudaStream_t stream) {
   constexpr size_t smem = Cfg<D>::kBytes;
   CUtensorMap mq, mk, mv;
   if (!make_map<D>(&mq, q, B, Sq, H) || !make_map<D>(&mk, k, B, Skv, K) ||
@@ -820,7 +824,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   dim3 grid(H, (Sq + kConsumers * kRows - 1) / (kConsumers * kRows), B);
   flash_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
       mq, mk, mv, (__nv_bfloat16*)o, lse, Sq, Skv, H, K,
-      scale, causal, window, softcap);
+      scale, causal, window, qo, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -829,32 +833,33 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 template <bool kBf16, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int Sq, int Skv, int H, int K, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
+           int qo, float softcap, float scale, cudaStream_t stream) {
   if constexpr (kBf16)
     return tc::launch<D>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, window,
-                         softcap, scale, stream);
+                         qo, softcap, scale, stream);
   else
     return f32::launch<D>(q, k, v, o, lse, B, Sq, Skv, H, K, causal, window,
-                          softcap, scale, stream);
+                          qo, softcap, scale, stream);
 }
 
 template <bool kBf16>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* lse,
              int B, int Sq, int Skv, int H, int K, int D, int causal,
-             int window, float softcap, float scale, cudaStream_t stream) {
+             int window, int qo, float softcap, float scale,
+             cudaStream_t stream) {
   switch (D) {
     case 16:
       return launch<kBf16, 16>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
-                               window, softcap, scale, stream);
+                               window, qo, softcap, scale, stream);
     case 64:
       return launch<kBf16, 64>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
-                               window, softcap, scale, stream);
+                               window, qo, softcap, scale, stream);
     case 128:
       return launch<kBf16, 128>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
-                                window, softcap, scale, stream);
+                                window, qo, softcap, scale, stream);
     case 256:
       return launch<kBf16, 256>(q, k, v, o, lse, B, Sq, Skv, H, K, causal,
-                                window, softcap, scale, stream);
+                                window, qo, softcap, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -965,11 +970,12 @@ dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
+// Whether query row qp (at position qo + qp) sees key kp.
 __device__ __forceinline__ bool visible(int qp, int kp, int Sq, int Skv,
-                                        int causal, int window) {
+                                        int causal, int window, int qo) {
   bool ok = qp < Sq && kp < Skv;
-  if (causal) ok = ok && qp >= kp;
-  if (window) ok = ok && (qp - kp) < window;
+  if (causal) ok = ok && qo + qp >= kp;
+  if (window) ok = ok && (qo + qp - kp) < window;
   return ok;
 }
 
@@ -1062,7 +1068,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                const float* __restrict__ lse, const float* __restrict__ dvec,
                float* __restrict__ dk_part, float* __restrict__ dv_part,
                int Sq, int Skv, int H, int K, float scale, int causal,
-               int window, float softcap) {
+               int window, int qo, float softcap) {
   using C = tc::Cfg<D>;
   using L = KvCfg<D>;
   constexpr int kStages = L::kStages;
@@ -1079,9 +1085,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.x, b = blockIdx.z;
   const int G = H / K, kvh = h / G, g = h % G;
   const int k0 = blockIdx.y * kRows, k1 = min(k0 + kRows, Skv);
-  // the query rows that may see any of these keys, in whole tiles
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(Sq, k1 - 1 + window) : Sq;
+  // the query rows that may see any of these keys, in whole tiles (row r
+  // at position qo + r)
+  const int q_lo = causal ? max(0, k0 - qo) : 0;
+  const int q_hi = window ? min(Sq, k1 - 1 + window - qo) : Sq;
   const int t_lo = q_lo / kRows;
   const int t_hi = q_lo < q_hi ? (q_hi + kRows - 1) / kRows : t_lo;
   const int wg = threadIdx.x / 128;
@@ -1170,8 +1177,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (owns_dv) {
         // P^T; P^T (1 - tanh^2) / sqrt(D) to warpgroup 2
         const bool cut = q0 + kRows > Sq || k0 + kRows > Skv ||
-                         (causal && q0 < k0 + kRows - 1) ||
-                         (window && q0 + kRows - 1 - k0 >= window);
+                         (causal && qo + q0 < k0 + kRows - 1) ||
+                         (window && qo + q0 + kRows - 1 - k0 >= window);
         tc::mbar_wait(bar_xempty, (i & 1) ^ 1);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -1186,7 +1193,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             bool ok = true;
             if (cut)
               ok = visible(q0 + 8 * j + colq + (e & 1),
-                           key + (e >= 2 ? 8 : 0), Sq, Skv, causal, window);
+                           key + (e >= 2 ? 8 : 0), Sq, Skv, causal, window,
+                           qo);
             const float p = ok ? expf(x - rv[2 * j + (e & 1)]) : 0.0f;
             sc[4 * j + e] = p;
             xbuf[(4 * j + e) * 128 + tid] = p * dcap * scale;
@@ -1263,7 +1271,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_do,
              const float* __restrict__ lse, const float* __restrict__ dvec,
              __nv_bfloat16* __restrict__ dq, int Sq, int Skv, int H, int K,
-             float scale, int causal, int window, float softcap) {
+             float scale, int causal, int window, int qo, float softcap) {
   using C = tc::Cfg<D>;
   using L = QCfg<D>;
   constexpr int kKS = L::kKStages, kVS = L::kVStages;
@@ -1280,9 +1288,10 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int kvh = h / (H / K);
   const int q0 = blockIdx.y * (tc::kConsumers * kRows);
   const int q1 = min(q0 + tc::kConsumers * kRows, Sq);
-  // the band of keys any row of this block may see, in whole tiles
-  const int kv_lo = window ? max(0, q0 - window + 1) : 0;
-  const int kv_hi = causal ? min(q1, Skv) : Skv;
+  // the band of keys any row of this block may see, in whole tiles (row
+  // r at position qo + r)
+  const int kv_lo = window ? max(0, qo + q0 - window + 1) : 0;
+  const int kv_hi = causal ? min(qo + q1, Skv) : Skv;
   const int t_lo = kv_lo / kRows;
   const int t_hi = max(t_lo, (kv_hi + kRows - 1) / kRows);
   const int wg = threadIdx.x / 128;
@@ -1342,8 +1351,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // the tiles this consumer's rows may see
     int c_lo = t_hi, c_hi = t_hi;
     if (r0 < Sq) {
-      const int lo = window ? max(0, r0 - window + 1) : 0;
-      const int hi = causal ? min(min(r0 + kRows, Sq), Skv) : Skv;
+      const int lo = window ? max(0, qo + r0 - window + 1) : 0;
+      const int hi = causal ? min(qo + min(r0 + kRows, Sq), Skv) : Skv;
       c_lo = max(t_lo, lo / kRows);
       c_hi = min(t_hi, (hi + kRows - 1) / kRows);
     }
@@ -1382,8 +1391,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (own) {
         const int k0 = t * kRows;
         const bool cut = k0 + kRows > Skv ||
-                         (causal && k0 + kRows - 1 > r0) ||
-                         (window && r0 + kRows - 1 - k0 >= window);
+                         (causal && k0 + kRows - 1 > qo + r0) ||
+                         (window && qo + r0 + kRows - 1 - k0 >= window);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -1397,7 +1406,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
             bool ok = true;
             if (cut)
               ok = visible(row + (e >= 2 ? 8 : 0), k0 + 8 * j + colq + (e & 1),
-                           Sq, Skv, causal, window);
+                           Sq, Skv, causal, window, qo);
             const float p = ok ? expf(x - (e >= 2 ? lse1 : lse0)) : 0.0f;
             dp[4 * j + e] =
                 p * (dp[4 * j + e] - (e >= 2 ? dv1 : dv0)) * dcap * scale;
@@ -1435,8 +1444,8 @@ template <int D>
 int launch_tc(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const float* lse, float* dvec, float* part,
               void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H,
-              int K, int causal, int window, float softcap, float scale,
-              cudaStream_t stream) {
+              int K, int causal, int window, int qo, float softcap,
+              float scale, cudaStream_t stream) {
   if (part == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mdo;
   if (!tc::make_map<D>(&mq, q, B, Sq, H) ||
@@ -1460,7 +1469,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   dkdv_tc_kernel<D><<<dim3(H, (Skv + kRows - 1) / kRows, B), tc::kThreads,
                       KvCfg<D>::kBytes, stream>>>(
       mq, mk, mv, mdo, lse, dvec, part, part + n_part, Sq, Skv, H, K, scale,
-      causal, window, softcap);
+      causal, window, qo, softcap);
   const long long pairs = (long long)B * Skv * K * D / 2;
   const long long want = (pairs + 255) / 256;
   const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
@@ -1472,7 +1481,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
                                 (tc::kConsumers * kRows), B),
                     tc::kThreads, QCfg<D>::kBytes, stream>>>(
       mq, mk, mv, mdo, lse, dvec, (__nv_bfloat16*)dq, Sq, Skv, H, K, scale,
-      causal, window, softcap);
+      causal, window, qo, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -1513,7 +1522,7 @@ __device__ __forceinline__ void grad_scores(
     float* ps, float* dss, const float* qs, const float* dos,
     const float* ks, const float* vs, const float* lse_s, const float* d_s,
     int q0, int k0, int Sq, int Skv, float scale, int causal, int window,
-    float softcap) {
+    int qo, float softcap) {
   constexpr int S = Smem<D>::kStride;
   const int r0 = 2 * (threadIdx.x / 16), c0 = threadIdx.x % 16;
   float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
@@ -1545,7 +1554,7 @@ __device__ __forceinline__ void grad_scores(
         x = t * softcap;
         dcap = 1.0f - t * t;
       }
-      const float p = visible(q0 + r, k0 + c, Sq, Skv, causal, window)
+      const float p = visible(q0 + r, k0 + c, Sq, Skv, causal, window, qo)
                           ? expf(x - lse_s[r])
                           : 0.0f;
       if (ps != nullptr) ps[r * (kB + 1) + c] = p;
@@ -1560,7 +1569,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dvec,
             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int H,
-            int K, float scale, int causal, int window, float softcap) {
+            int K, float scale, int causal, int window, int qo, float softcap) {
   using L = Smem<D>;
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
@@ -1577,9 +1586,10 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * kB, k1 = min(k0 + kB, Skv);
   const int G = H / K;
   const int r0 = 2 * (threadIdx.x / 16), c0 = threadIdx.x % 16;
-  // the query rows that may see any of these keys, in whole tiles
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = window ? min(Sq, k1 - 1 + window) : Sq;
+  // the query rows that may see any of these keys, in whole tiles (row r
+  // at position qo + r)
+  const int q_lo = causal ? max(0, k0 - qo) : 0;
+  const int q_hi = window ? min(Sq, k1 - 1 + window - qo) : Sq;
   const int t_lo = q_lo / kB, t_hi = q_lo < q_hi ? (q_hi + kB - 1) / kB : 0;
 
   load_rows<D>(ks, k, b, k0, Skv, K, kvh);
@@ -1605,7 +1615,7 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncthreads();
       grad_scores<D>(ps, dss, qs, dos, ks, vs, lse_s, d_s, q0, k0, Sq, Skv,
-                     scale, causal, window, softcap);
+                     scale, causal, window, qo, softcap);
       __syncthreads();
       // dV[key] += sum_q P[q][key] dO[q];  dK[key] += sum_q dS[q][key] Q[q]
 #pragma unroll 4
@@ -1644,7 +1654,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dvec,
           float* __restrict__ dq, int Sq, int Skv, int H, int K, float scale,
-          int causal, int window, float softcap) {
+          int causal, int window, int qo, float softcap) {
   using L = Smem<D>;
   constexpr int kCols = D / 16;
   extern __shared__ float smem[];
@@ -1660,9 +1670,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kvh = h / (H / K);
   const int q0 = blockIdx.x * kB, q1 = min(q0 + kB, Sq);
   const int r0 = 2 * (threadIdx.x / 16), c0 = threadIdx.x % 16;
-  // the band of keys any row of this tile may see, in whole tiles
-  const int kv_lo = window ? max(0, q0 - window + 1) : 0;
-  const int kv_hi = causal ? min(q1, Skv) : Skv;
+  // the band of keys any row of this tile may see, in whole tiles (row r
+  // at position qo + r)
+  const int kv_lo = window ? max(0, qo + q0 - window + 1) : 0;
+  const int kv_hi = causal ? min(qo + q1, Skv) : Skv;
   const int t_lo = kv_lo / kB;
   const int t_hi = kv_lo < kv_hi ? (kv_hi + kB - 1) / kB : 0;
 
@@ -1687,7 +1698,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     load_rows<D>(vs, v, b, k0, Skv, K, kvh);
     __syncthreads();
     grad_scores<D>(nullptr, dss, qs, dos, ks, vs, lse_s, d_s, q0, k0, Sq,
-                   Skv, scale, causal, window, softcap);
+                   Skv, scale, causal, window, qo, softcap);
     __syncthreads();
     // dQ[q] += sum_key dS[q][key] K[key]
 #pragma unroll 4
@@ -1715,7 +1726,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* dvec, void* dq,
            void* dk, void* dv, int B, int Sq, int Skv, int H, int K,
-           int causal, int window, float softcap, float scale,
+           int causal, int window, int qo, float softcap, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = Smem<D>::kBytes;
   if (smem > 48 * 1024) {
@@ -1734,11 +1745,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   dkdv_kernel<D><<<dim3((Skv + kB - 1) / kB, K, B), kThreads, smem,
                       stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, dvec,
-      (float*)dk, (float*)dv, Sq, Skv, H, K, scale, causal, window, softcap);
+      (float*)dk, (float*)dv, Sq, Skv, H, K, scale, causal, window, qo,
+      softcap);
   dq_kernel<D><<<dim3((Sq + kB - 1) / kB, H, B), kThreads, smem,
                     stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout, lse, dvec,
-      (float*)dq, Sq, Skv, H, K, scale, causal, window, softcap);
+      (float*)dq, Sq, Skv, H, K, scale, causal, window, qo, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -1748,36 +1760,36 @@ template <int D>
 int launch_any(int bf16, const void* q, const void* k, const void* v,
                const void* o, const void* dout, const float* lse, float* dvec,
                float* part, void* dq, void* dk, void* dv, int B, int Sq,
-               int Skv, int H, int K, int causal, int window, float softcap,
-               float scale, cudaStream_t stream) {
+               int Skv, int H, int K, int causal, int window, int qo,
+               float softcap, float scale, cudaStream_t stream) {
   if (bf16)
     return launch_tc<D>(q, k, v, o, dout, lse, dvec, part, dq, dk, dv, B, Sq,
-                        Skv, H, K, causal, window, softcap, scale, stream);
+                        Skv, H, K, causal, window, qo, softcap, scale, stream);
   return launch<D>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Sq, Skv, H, K,
-                   causal, window, softcap, scale, stream);
+                   causal, window, qo, softcap, scale, stream);
 }
 
 int launch_d(int bf16, const void* q, const void* k, const void* v,
              const void* o, const void* dout, const float* lse, float* dvec,
              float* part, void* dq, void* dk, void* dv, int B, int Sq,
-             int Skv, int H, int K, int D, int causal, int window,
+             int Skv, int H, int K, int D, int causal, int window, int qo,
              float softcap, float scale, cudaStream_t stream) {
   switch (D) {
     case 16:
       return launch_any<16>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
-                            dv, B, Sq, Skv, H, K, causal, window, softcap,
+                            dv, B, Sq, Skv, H, K, causal, window, qo, softcap,
                             scale, stream);
     case 64:
       return launch_any<64>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
-                            dv, B, Sq, Skv, H, K, causal, window, softcap,
+                            dv, B, Sq, Skv, H, K, causal, window, qo, softcap,
                             scale, stream);
     case 128:
       return launch_any<128>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
-                             dv, B, Sq, Skv, H, K, causal, window, softcap,
+                             dv, B, Sq, Skv, H, K, causal, window, qo, softcap,
                              scale, stream);
     case 256:
       return launch_any<256>(bf16, q, k, v, o, dout, lse, dvec, part, dq, dk,
-                             dv, B, Sq, Skv, H, K, causal, window, softcap,
+                             dv, B, Sq, Skv, H, K, causal, window, qo, softcap,
                              scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -1791,7 +1803,9 @@ int launch_d(int bf16, const void* q, const void* k, const void* v,
 // q, o: (B, Sq, H, D); k, v: (B, Skv, K, D); contiguous, on one device, all
 // float32 (dtype 0, the CUDA-core kernel) or all bfloat16 (dtype 1, the
 // tensor-core kernel); K divides H; D one of 16, 64, 128, 256; window 0
-// means none, softcap 0 means none; scale multiplies every score before
+// means none, softcap 0 means none; q_offset >= 0 is the position of query
+// row 0 (key j sits at j; 0 for a whole sequence, a shard's first position
+// for a shard of its queries); scale multiplies every score before
 // the softcap (1/sqrt(D) for plain attention; a caller whose head is
 // zero-padded to D passes that of its own width).  lse, when not null:
 // (B, H, Sq) float32, the row log-sum-exp m + log(max(l, 1e-30)) of the
@@ -1801,19 +1815,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int Sq, int Skv, int H, int K,
                                       int D, int dtype, int causal,
-                                      int window, float softcap, float scale,
-                                      void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0)
+                                      int window, int q_offset, float softcap,
+                                      float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0 ||
+      q_offset < 0)
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || (Sq + f32::kBQ - 1) / f32::kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_d<false>(q, k, v, o, lse, B, Sq, Skv, H, K, D, causal,
-                           window, softcap, scale, s);
+                           window, q_offset, softcap, scale, s);
   if (dtype == 1)
     return launch_d<true>(q, k, v, o, lse, B, Sq, Skv, H, K, D, causal,
-                          window, softcap, scale, s);
+                          window, q_offset, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1830,13 +1845,14 @@ extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* dvec, float* part, void* dq,
     void* dk, void* dv, int B, int Sq, int Skv, int H, int K, int D,
-    int dtype, int causal, int window, float softcap, float scale,
-    void* stream) {
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0)
+    int dtype, int causal, int window, int q_offset, float softcap,
+    float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || K <= 0 || H % K != 0 || window < 0 ||
+      q_offset < 0)
     return (int)cudaErrorInvalidValue;
   if (B > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return bwd::launch_d(dtype, q, k, v, o, dout, lse, dvec, part, dq, dk, dv,
-                       B, Sq, Skv, H, K, D, causal, window, softcap, scale,
-                       (cudaStream_t)stream);
+                       B, Sq, Skv, H, K, D, causal, window, q_offset, softcap,
+                       scale, (cudaStream_t)stream);
 }

@@ -3,9 +3,12 @@
 versions.
 
 ``flash_attention(q, k, v, causal=, window=, softcap=, scale=,
-return_lse=)`` is forward softmax attention over q (B,Sq,H,D) and k, v
-(B,Skv,K,D) with K | H (grouped-query heads), causal and/or a sliding
-window, an optional tanh softcap, the scores scaled by ``scale`` (1/√D
+return_lse=, q_offset=)`` is forward softmax attention over q (B,Sq,H,D)
+and k, v (B,Skv,K,D) with K | H (grouped-query heads), causal and/or a
+sliding window, query row i at position ``q_offset`` + i (0 by default;
+a rank holding one shard of a sequence's queries against the whole
+sequence's keys passes the shard's first position), an optional tanh
+softcap, the scores scaled by ``scale`` (1/√D
 by default; a caller that zero-pads its heads to one of ``HEAD_DIMS``
 passes its own), float32 inside and out in q's dtype; with ``return_lse``
 it also returns the float32 row log-sum-exp (B,H,Sq) that the backward
@@ -50,7 +53,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 128, 256)
 
 
-def _check_call(name, q, k, window):
+def _check_call(name, q, k, window, q_offset):
     """The shape, type and option checks both directions share ->
     (B, Sq, H, D, Skv, K)."""
     if q.device.type != "cuda":
@@ -66,6 +69,8 @@ def _check_call(name, q, k, window):
         raise TypeError(f"{name}: dtype {q.dtype} not in {tuple(DTYPES)}")
     if window < 0:
         raise ValueError(f"{name}: window {window} < 0")
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset {q_offset} < 0")
     return B, Sq, H, D, Skv, K
 
 
@@ -120,21 +125,24 @@ def _scale(scale, D: int) -> float:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale=None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, q_offset: int = 0):
     """q: (B,Sq,H,D); k, v: (B,Skv,K,D) -> o (B,Sq,H,D) in q's dtype, and
     with ``return_lse`` (o, lse (B,H,Sq) float32).  ``scale`` None is
-    1/√D."""
+    1/√D; query row i sits at position ``q_offset`` + i."""
     _no_grad_inputs("flash_attention", q, k, v)
+    q_offset = int(q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale,
-                                       return_lse=return_lse)
-    B, Sq, H, D, Skv, K = _check_call("flash_attention", q, k, window)
+                                       return_lse=return_lse,
+                                       q_offset=q_offset)
+    B, Sq, H, D, Skv, K = _check_call("flash_attention", q, k, window,
+                                      q_offset)
     Dp = kernel_head_dim(D)
     if Dp != D:
         return padded_forward(flash_attention, q, k, v, Dp, causal=causal,
                               window=window, softcap=softcap, scale=scale,
-                              return_lse=return_lse)
+                              return_lse=return_lse, q_offset=q_offset)
     scale = _scale(scale, D)
     dev = q.device
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -150,22 +158,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             lse.fill_(ref.NEG_INF)
         return (o, lse) if return_lse else o
     fn = _fn("flash_attention", "flash_attention_launch",
-             [P] * 5 + [I] * 9 + [ctypes.c_float] * 2 + [P])
+             [P] * 5 + [I] * 10 + [ctypes.c_float] * 2 + [P])
     with on_device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  None if lse is None else lse.data_ptr(),
                  B, Sq, Skv, H, K, D, DTYPES[q.dtype], int(bool(causal)),
-                 int(window), float(softcap), scale, current_stream(dev))
+                 int(window), q_offset, float(softcap), scale,
+                 current_stream(dev))
     _raise_on(err, "flash_attention")
     flash_attention_launches.add()
     work.charge("flash_attention", work.flash_work, B, Sq, Skv, H, K, D,
-                causal, window, q.element_size())
+                causal, window, q.element_size(), q_offset=q_offset)
     return (o, lse) if return_lse else o
 
 
 def flash_attention_meta(q, k, v, *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0, scale=None,
-                         return_lse: bool = False):
+                         return_lse: bool = False, q_offset: int = 0):
     """The kernel's meta function, for meta tensors (shapes only: the dry
     run): ``flash_attention``'s outputs, uninitialised, and the launch
     charged by its work formula (``work.flash_work``); nothing counted."""
@@ -173,7 +182,7 @@ def flash_attention_meta(q, k, v, *, causal: bool = True, window: int = 0,
     o = torch.empty(B, Sq, H, v.shape[-1], dtype=q.dtype, device=q.device)
     work.charge("flash_attention", work.flash_work, B, Sq, k.shape[1], H,
                 k.shape[2], D, causal, window, q.element_size(),
-                v.shape[-1])
+                v.shape[-1], q_offset=int(q_offset))
     if not return_lse:
         return o
     return o, torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -181,33 +190,38 @@ def flash_attention_meta(q, k, v, *, causal: bool = True, window: int = 0,
 
 def flash_attention_bwd_meta(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0, softcap: float = 0.0,
-                             scale=None):
+                             scale=None, q_offset: int = 0):
     """The backward kernel's meta function (see ``flash_attention_meta``):
     (dq, dk, dv) uninitialised, the launch charged by
     ``work.flash_bwd_work``."""
     B, Sq, H, D = q.shape
     work.charge("flash_attention_bwd", work.flash_bwd_work, B, Sq,
                 k.shape[1], H, k.shape[2], D, causal, window,
-                q.element_size(), v.shape[-1])
+                q.element_size(), v.shape[-1], q_offset=int(q_offset))
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
-                        window: int = 0, softcap: float = 0.0, scale=None):
+                        window: int = 0, softcap: float = 0.0, scale=None,
+                        q_offset: int = 0):
     """The gradient of ``flash_attention``: q, o, do (B,Sq,H,D); k, v
     (B,Skv,K,D); lse (B,H,Sq) float32 as the forward returned it; the
-    forward's ``scale`` -> (dq, dk, dv) in the inputs' dtype."""
+    forward's ``scale`` and ``q_offset`` -> (dq, dk, dv) in the inputs'
+    dtype."""
     _no_grad_inputs("flash_attention_bwd", q, k, v, o, do)
+    q_offset = int(q_offset)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal, window=window,
-                                           softcap=softcap, scale=scale)
-    B, Sq, H, D, Skv, K = _check_call("flash_attention_bwd", q, k, window)
+                                           softcap=softcap, scale=scale,
+                                           q_offset=q_offset)
+    B, Sq, H, D, Skv, K = _check_call("flash_attention_bwd", q, k, window,
+                                      q_offset)
     Dp = kernel_head_dim(D)
     if Dp != D:
         return padded_backward(flash_attention_bwd, q, k, v, o, lse, do, Dp,
                                causal=causal, window=window, softcap=softcap,
-                               scale=scale)
+                               scale=scale, q_offset=q_offset)
     scale = _scale(scale, D)
     dev, dt = q.device, q.dtype
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
@@ -224,16 +238,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     part = (torch.empty((2, B, Skv, H, D), dtype=torch.float32, device=dev)
             if dt == torch.bfloat16 else None)
     fn = _fn("flash_attention", "flash_attention_bwd_launch",
-             [P] * 11 + [I] * 9 + [ctypes.c_float] * 2 + [P])
+             [P] * 11 + [I] * 10 + [ctypes.c_float] * 2 + [P])
     with on_device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dvec.data_ptr(),
                  None if part is None else part.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  B, Sq, Skv, H, K, D, DTYPES[dt], int(bool(causal)),
-                 int(window), float(softcap), scale, current_stream(dev))
+                 int(window), q_offset, float(softcap), scale,
+                 current_stream(dev))
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd_launches.add()
     work.charge("flash_attention_bwd", work.flash_bwd_work, B, Sq, Skv, H,
-                K, D, causal, window, q.element_size())
+                K, D, causal, window, q.element_size(), q_offset=q_offset)
     return dq, dk, dv

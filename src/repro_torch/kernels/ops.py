@@ -120,32 +120,33 @@ class _FlashAttention(torch.autograd.Function):
     """o, lse = attention(q, k, v); saves q, k, v, o and lse."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, softcap, scale):
+    def forward(q, k, v, causal, window, softcap, scale, q_offset=0):
         fwd = _lm(_fa.flash_attention, _fa.flash_attention_meta, q)
         return fwd(q, k, v, causal=causal, window=window, softcap=softcap,
-                   scale=scale, return_lse=True)
+                   scale=scale, return_lse=True, q_offset=q_offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, softcap, scale = inputs
+        q, k, v, causal, window, softcap, scale, *q_offset = inputs
         o, lse = output
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.opts = (causal, window, softcap, scale)
+        ctx.opts = (causal, window, softcap, scale, *q_offset)
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = _FlashAttentionBwd.apply(q, k, v, o, lse, do,
                                               *ctx.opts)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window, softcap, scale):
+    def vmap(info, in_dims, q, k, v, causal, window, softcap, scale,
+             q_offset=0):
         n = info.batch_size
         o, lse = _FlashAttention.apply(
             *(_fold(t, d, n) for t, d in zip((q, k, v), in_dims)),
-            causal, window, softcap, scale)
+            causal, window, softcap, scale, q_offset)
         return (_unfold(o, n), _unfold(lse, n)), (0, 0)
 
 
@@ -154,11 +155,12 @@ class _FlashAttentionBwd(torch.autograd.Function):
     the backward, too, runs under ``vmap`` as one folded launch."""
 
     @staticmethod
-    def forward(q, k, v, o, lse, do, causal, window, softcap, scale):
+    def forward(q, k, v, o, lse, do, causal, window, softcap, scale,
+                q_offset=0):
         bwd = _lm(_fa.flash_attention_bwd, _fa.flash_attention_bwd_meta,
                   q)
         return bwd(q, k, v, o, lse, do, causal=causal, window=window,
-                   softcap=softcap, scale=scale)
+                   softcap=softcap, scale=scale, q_offset=q_offset)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -170,12 +172,12 @@ class _FlashAttentionBwd(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, o, lse, do, causal, window, softcap,
-             scale):
+             scale, q_offset=0):
         n = info.batch_size
         grads = _FlashAttentionBwd.apply(
             *(_fold(t, d, n) for t, d in zip((q, k, v, o, lse, do),
                                             in_dims)),
-            causal, window, softcap, scale)
+            causal, window, softcap, scale, q_offset)
         return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
@@ -228,19 +230,22 @@ class _RglruScanBwd(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0,
-                    scale=None, force_kernel=False):
+                    scale=None, q_offset=0, force_kernel=False):
     """Softmax attention, q (B,Sq,H,D), k/v (B,Skv,K,D) with K | H,
-    causal and/or a sliding window, optional tanh softcap, scores scaled
-    by ``scale`` (1/√D when None) -> (B,Sq,H,D) in q's dtype,
-    differentiable in q, k and v: the CUDA kernels forward and backward
-    on the card, the dense oracle and its plain gradient on the CPU."""
+    causal and/or a sliding window (query row i at position ``q_offset``
+    + i, key j at j), optional tanh softcap, scores scaled by ``scale``
+    (1/√D when None) -> (B,Sq,H,D) in q's dtype, differentiable in q, k
+    and v: the CUDA kernels forward and backward on the card, the dense
+    oracle and its plain gradient on the CPU."""
     _need_cuda("flash_attention", q, force_kernel)
+    q_offset = int(q_offset)
     if not _differentiated(q, k, v):
         # serving: no graph, so no lse to save
         fwd = _lm(_fa.flash_attention, _fa.flash_attention_meta, q)
         return fwd(q, k, v, causal=causal, window=window, softcap=softcap,
-                   scale=scale)
-    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)[0]
+                   scale=scale, q_offset=q_offset)
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
+                                 q_offset)[0]
 
 
 def rglru_scan(log_a, b, *, force_kernel=False):

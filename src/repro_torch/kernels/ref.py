@@ -20,11 +20,12 @@ _LOG_2PI = math.log(2.0 * math.pi)
 NEG_INF = -2.0 ** 30
 
 
-def _flash_scores(q, k, causal, window, softcap, scale=None):
+def _flash_scores(q, k, causal, window, softcap, scale=None, q_offset=0):
     """Scores of ``flash_attention_ref`` (B,K,G,Sq,Skv) float32: scaled
     (by ``scale``, or over √D when it is None), softcapped, masked with
-    ``NEG_INF``; and the softcap's tanh (None without one), whose
-    1 − tanh² the gradient takes."""
+    ``NEG_INF`` (query row i at position ``q_offset`` + i); and the
+    softcap's tanh (None without one), whose 1 − tanh² the gradient
+    takes."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, K, H // K, D).float()
@@ -34,7 +35,7 @@ def _flash_scores(q, k, causal, window, softcap, scale=None):
     if softcap:
         t = torch.tanh(s / softcap)
         s = t * softcap
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = torch.arange(q_offset, q_offset + Sq, device=q.device)[:, None]
     kv_pos = torch.arange(Skv, device=q.device)[None, :]
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -45,15 +46,17 @@ def _flash_scores(q, k, causal, window, softcap, scale=None):
 
 
 def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
-                        scale=None, return_lse=False):
+                        scale=None, return_lse=False, q_offset=0):
     """q: (B,Sq,H,D); k,v: (B,Skv,K,D) -> (B,Sq,H,D).  Dense masked
     softmax attention in float32, out in q's dtype: the function the
     flash kernel must equal.  Scores are scaled by ``scale`` (1/√D when
-    None) before the softcap.  Query and key positions both count from 0;
-    masked scores take ``NEG_INF``, not -inf.  With ``return_lse`` also
-    the row log-sum-exp of the masked scores, (B,H,Sq) float32."""
+    None) before the softcap.  Key positions count from 0, query row i
+    sits at ``q_offset`` + i (0: the Pallas kernel's layout; a shard of a
+    sequence's queries: the shard's first position); masked scores take
+    ``NEG_INF``, not -inf.  With ``return_lse`` also the row log-sum-exp
+    of the masked scores, (B,H,Sq) float32."""
     B, Sq, H, D = q.shape
-    s, _ = _flash_scores(q, k, causal, window, softcap, scale)
+    s, _ = _flash_scores(q, k, causal, window, softcap, scale, q_offset)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     out = out.reshape(B, Sq, H, D).to(q.dtype)
@@ -63,17 +66,18 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0,
-                            softcap=0.0, scale=None):
+                            softcap=0.0, scale=None, q_offset=0):
     """The gradient of ``flash_attention_ref`` -> (dq, dk, dv) in the
     inputs' dtype, dense and float32 inside: P = exp(s − lse) from the
     forward's lse (masked pairs 0), D = rowsum(dO·O) from its output,
     dS = P (dP − D), times 1 − tanh² under a softcap, times the scale
     (over √D when ``scale`` is None); dk and dv summed over the H/K query
-    heads of each KV head."""
+    heads of each KV head; queries at ``q_offset`` onwards, as the
+    forward."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
-    s, t = _flash_scores(q, k, causal, window, softcap, scale)
+    s, t = _flash_scores(q, k, causal, window, softcap, scale, q_offset)
     p = torch.exp(s - lse.float().reshape(B, K, G, Sq)[..., None])
     qg = q.reshape(B, Sq, K, G, D).float()
     dog = do.reshape(B, Sq, K, G, D).float()

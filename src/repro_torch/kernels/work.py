@@ -60,34 +60,40 @@ def q8_work(n: int) -> Work:
 
 
 @functools.lru_cache(maxsize=256)
-def visible_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask lets through, counted per query."""
+def visible_pairs(Sq: int, Skv: int, causal: bool, window: int,
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs the mask lets through, counted per query; query
+    row i at position ``q_offset`` + i, key j at j."""
     total = 0
-    for q in range(Sq):
+    for q in range(q_offset, q_offset + Sq):
         hi = min(q + 1, Skv) if causal else Skv
         lo = max(0, q - window + 1) if window else 0
         total += max(0, hi - lo)
     return total
 
 
-def flash_work(B, Sq, Skv, H, K, D, causal, window, elem, Dv=None) -> Work:
+def flash_work(B, Sq, Skv, H, K, D, causal, window, elem, Dv=None,
+               q_offset=0) -> Work:
     """(FLOPs, bytes) the attention forward needs: a visible pair a head
     takes S = q·k at the q/k width D and P·v at the value width Dv (D
-    when None), 2·(D + Dv) operations; q, k, v read once, o written
-    once, each of ``elem`` bytes an element."""
+    when None), 2·(D + Dv) operations, the pairs those of queries at
+    ``q_offset`` onwards; q, k, v read once, o written once, each of
+    ``elem`` bytes an element."""
     Dv = D if Dv is None else Dv
-    flops = 2 * B * H * visible_pairs(Sq, Skv, causal, window) * (D + Dv)
+    flops = (2 * B * H * visible_pairs(Sq, Skv, causal, window, q_offset)
+             * (D + Dv))
     nbytes = elem * (B * Sq * H * D + B * Skv * K * D + B * Skv * K * Dv
                      + B * Sq * H * Dv)
     return flops, nbytes
 
 
 def flash_bwd_work(B, Sq, Skv, H, K, D, causal, window, elem,
-                   Dv=None) -> Work:
+                   Dv=None, q_offset=0) -> Work:
     """(FLOPs, bytes) the attention backward needs: a visible pair a head
     takes S = q·k, dK and dQ at the q/k width D and dP = dO·v and dV at
     the value width Dv (D when None): 2·(3·D + 2·Dv) operations, 10·D
-    when they are equal, 2.5x the forward's; q, k, v, o, dO and lse read
+    when they are equal, 2.5x the forward's (pairs as ``flash_work``
+    counts them at ``q_offset``); q, k, v, o, dO and lse read
     once, dq, dk, dv written once.  The bf16 kernels issue twice this
     product work (P and dS split in two bf16 parts double dV, dK and dQ;
     S and dP are computed in both the dK/dV and the dQ kernel) on whole
@@ -95,7 +101,7 @@ def flash_bwd_work(B, Sq, Skv, H, K, D, causal, window, elem,
     minimum work."""
     Dv = D if Dv is None else Dv
     flops = (2 * (3 * D + 2 * Dv) * B * H
-             * visible_pairs(Sq, Skv, causal, window))
+             * visible_pairs(Sq, Skv, causal, window, q_offset))
     nbytes = (elem * 2 * (D + Dv) * (B * Sq * H + B * Skv * K)
               + 4 * B * H * Sq)
     return flops, nbytes
@@ -154,13 +160,13 @@ def charging() -> Iterator[Tally]:
             _OPEN.remove(tally)
 
 
-def charge(name: str, formula, *args) -> None:
-    """One launch of kernel ``name``, its work ``formula(*args)`` (worked
-    out only when a ``charging()`` block is open), added to every open
-    block."""
+def charge(name: str, formula, *args, **kwargs) -> None:
+    """One launch of kernel ``name``, its work ``formula(*args,
+    **kwargs)`` (worked out only when a ``charging()`` block is open),
+    added to every open block."""
     if not _OPEN:
         return
-    flops, nbytes = formula(*args)
+    flops, nbytes = formula(*args, **kwargs)
     with _LOCK:
         for tally in _OPEN:
             tally.add(name, flops, nbytes)

@@ -9,15 +9,19 @@ Here each cell runs once, eagerly:
 
 * a fake process group of 256 (16x16 ``("data", "model")``) or 512
   (2x16x16 with ``"pod"``) ranks (``torch.testing``'s ``FakeStore``:
-  collectives are recorded, not performed) and this process as rank 0;
+  collectives are recorded, not performed) and this process as the last
+  rank, whose shards are the last of every sharded dim: where a step
+  shards the sequence (``_dtensor.on_seq_shards``), its causal attention
+  has the most (query, key) pairs there, so the cell costs the slowest
+  rank's step;
 * the state as DTensors of meta tensors (shapes, no storage) placed by
   ``state_specs``, the batch by ``batch_specs``;
 * one step: train (forward, backward and AdamW with ``grad_specs``),
   prefill, or decode over ``cache_specs``' cache, under the activation
   anchors of the batch's spec;
-* ``distributed/cost.py``'s per-device cost of that step (rank 0's
-  local ops and collectives), ``distributed/memory.py``'s live bytes of
-  it, and the H100 roofline (``distributed/roofline.py``).
+* ``distributed/cost.py``'s per-device cost of that step (the last
+  rank's local ops and collectives), ``distributed/memory.py``'s live
+  bytes of it, and the H100 roofline (``distributed/roofline.py``).
 
 On meta tensors the hand-written kernels run as their meta functions
 (``kernels/ops.py``: the outputs' shapes, each launch charged by its work
@@ -32,7 +36,8 @@ data-dependent value.
 ``argument_size_in_bytes`` is the state's exact ``sharded_bytes`` (the
 batch is live but not counted there); the output, alias, temp and peak
 bytes come from the tracker of live local-shard storage
-(``distributed/memory.py``) around the step, rank 0's shards, with temp
+(``distributed/memory.py``) around the step, the last rank's shards
+(every rank's are equal in shape), with temp
 = peak - argument - (output - alias).  An eager step has no compiled
 program, so ``generated_code_size_in_bytes`` is absent;
 ``memory_notes`` says so and names what the tracker cannot see.
@@ -102,12 +107,13 @@ def apply_opts(cfg, opts):
 
 
 @contextlib.contextmanager
-def fake_world(n: int):
-    """A fake process group of ``n`` ranks, this process rank 0;
-    destroyed on the way out."""
+def fake_world(n: int, rank: int = 0):
+    """A fake process group of ``n`` ranks, this process ``rank`` (-1:
+    the last); destroyed on the way out."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", rank=0, world_size=n, store=FakeStore())
+    dist.init_process_group("fake", rank=rank % n, world_size=n,
+                            store=FakeStore())
     try:
         yield
     finally:
@@ -176,9 +182,10 @@ def _step(cfg, shape, mesh):
 def measure(cfg, shape, mesh) -> dict:
     """One step of the cell (``cfg``, ``shape``) on ``mesh``, whose
     process group is live (a fake one): the state's argument bytes a
-    device, its leaves sharded in mesh order, the step's cost (rank 0's
-    ops, ``distributed/cost.py``), its memory (rank 0's live local-shard
-    bytes, ``distributed/memory.py``), its wall seconds and its model
+    device, its leaves sharded in mesh order, the step's cost (this
+    rank's ops, ``distributed/cost.py``), its memory (this rank's live
+    local-shard bytes, ``distributed/memory.py``), its wall seconds and
+    its model
     FLOPs (6ND / 2ND, before dividing by the mesh)."""
     from torch.distributed.tensor.experimental import implicit_replication
     arg_shapes, arg_specs, make, act, model_flops = _step(cfg, shape, mesh)
@@ -216,7 +223,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
 
     n_dev = 512 if multi_pod else 256
     try:
-        with fake_world(n_dev):
+        with fake_world(n_dev, rank=-1):
             m = measure(cfg, shape,
                         make_production_mesh(multi_pod=multi_pod))
         cost, memory = m["cost"], m["memory"]

@@ -11,9 +11,17 @@ plain gradient on the CPU.  It computes what the reference's chunked
 ``arange(Sq)`` and ``arange(Skv)``, as they always are there (the
 encoder's frames and a prompt both count from 0; cross-attention masks
 nothing); its scores are float32 inside the kernel whatever the compute
-dtype.  Decode is plain torch, as the reference's is XLA: one query
-against the whole cache (against every encoder position for
-cross-attention), float32 scores.
+dtype.  A sequence-parallel step (``models/model.py``) splits the two
+halves, ``qkv`` on each rank's shard of the sequence and ``attend`` of
+those queries over the gathered keys and values, the kernel told where
+the shard starts (``q_offset``): the rows of the reference's
+partitioned attention that the shard holds.  Decode is plain torch, as
+the reference's is XLA: one query against the whole cache (against
+every encoder position for cross-attention), float32 scores; over a
+cache sharded on its sequence, each rank attends its chunk
+(``decode_attend_chunk``) and the chunks are combined across the ranks
+(a ``Chunk``'s ``combine``), as the reference's ``combine_decode``
+merges them.
 
 MLA (DeepSeek): prefill and training use the expanded form, whose query
 and key heads (``qk_nope_dim + qk_rope_dim`` wide) and value heads
@@ -26,8 +34,9 @@ reference.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -93,8 +102,24 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     with no RoPE, never causal.  Returns y, and with ``return_kv`` (y,
     {"k", "v"}), the keys and values the decode cache is built from
     ({"ckv", "kr"} for MLA)."""
+    cross = kv_source is not None
+    q, k, v, latent = qkv(p, x, positions, cfg, kv_source=kv_source)
+    y = attend(p, q, k, v, cfg, causal=causal and not cross, window=window,
+               cross=cross)
+    if return_kv:
+        return y, (latent if latent else {"k": k, "v": v})
+    return y
+
+
+def qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
+        cfg: ModelConfig, *, kv_source: Optional[torch.Tensor] = None):
+    """Attention's projections of x (B,S,d) at ``positions`` (S,) ->
+    (q (B,S,H,Dqk), k, v (B,Skv,heads,Dqk / Dv), latent): RoPE'd as
+    ``attn_forward`` takes them, keys and values from ``kv_source`` when
+    given (cross-attention, no RoPE); MLA's expanded heads unpadded, its
+    ``latent`` {"ckv", "kr"} the decode cache's rows, {} otherwise."""
     if cfg.mla and kv_source is None:
-        return _mla_forward(p, x, positions, cfg, return_kv=return_kv)
+        return _mla_qkv(p, x, positions, cfg)
     hd = cfg.hd
     src = x if kv_source is None else kv_source
     q = dense3(p["wq"], x, cfg.n_heads, hd)
@@ -103,12 +128,22 @@ def attn_forward(p: Params, x: torch.Tensor, positions: torch.Tensor,
     if kv_source is None and cfg.pos_kind == "rope":
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = ops.flash_attention(q, k, v, causal=causal and kv_source is None,
-                              window=window, softcap=cfg.attn_softcap)
-    y = L.dense(p["wo"], out.reshape(*x.shape[:-1], -1))
-    if return_kv:
-        return y, {"k": k, "v": v}
-    return y
+    return q, k, v, {}
+
+
+def attend(p: Params, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: ModelConfig, *, causal: bool = True, window: int = 0,
+           q_offset: int = 0, cross: bool = False) -> torch.Tensor:
+    """``qkv``'s queries (B,Sq,...) over its keys and values through the
+    flash kernel, query row i at position ``q_offset`` + i, and the
+    output projection -> y (B,Sq,d); ``cross``: plain GQA in an MLA
+    config."""
+    at = {"q_offset": q_offset} if q_offset else {}
+    if cfg.mla and not cross:
+        return _mla_attend(p, q, k, v, cfg, **at)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_softcap, **at)
+    return L.dense(p["wo"], out.reshape(*q.shape[:-2], -1))
 
 
 # ==========================================================================
@@ -130,6 +165,53 @@ def init_cache_attn(cfg: ModelConfig, batch: int, cache_len: int, *,
     shape = (batch, S, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Chunk:
+    """A rank's chunk of a decode cache whose sequence (slot) dim is
+    sharded: its first slot ``offset``, the whole cache's ``total``
+    slots, and ``combine(num, mx, den)``, which merges the chunk's
+    ``decode_attend_chunk`` stats with every other chunk's into the
+    float32 attention output (``combine_decode`` across the ranks)."""
+    offset: int
+    total: int
+    combine: Callable
+
+
+def decode_attend_chunk(q, k, v, q_pos, kv_pos, *, scale, softcap=0.0,
+                        window: int = 0):
+    """One-token attention over a chunk of the cache, as combinable
+    stats: the reference's ``decode_attend_chunk``.  q: (B,H,D); k, v:
+    (B,S,K,D); kv_pos: (B,S) absolute positions (< 0 or > q_pos entries
+    are masked) -> (num (B,H,Dv) in v's dtype, mx (B,H), den (B,H)
+    float32)."""
+    B, H, D = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, K, H // K, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window:
+        valid &= (q_pos[:, None] - kv_pos) < window
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    mx = s.amax(dim=-1)
+    w = torch.exp(s - mx[..., None])
+    num = torch.einsum("bkgs,bskd->bkgd", w.to(v.dtype), v)
+    return num.reshape(B, H, -1), mx.reshape(B, H), w.sum(-1).reshape(B, H)
+
+
+def combine_decode(parts):
+    """Per-chunk (num, mx, den) stats -> the (B,H,Dv) float32 output:
+    the reference's ``combine_decode``."""
+    mx = torch.stack([m for _, m, _ in parts]).amax(0)
+    num, den = 0.0, 0.0
+    for n, m, d in parts:
+        c = torch.exp(m - mx)
+        num = num + n.float() * c[..., None]
+        den = den + d * c
+    return num / torch.clamp(den, min=1e-37)[..., None]
 
 
 def decode_attend(q, k, v, q_pos, kv_pos, *, scale, softcap=0.0,
@@ -164,26 +246,74 @@ def attn_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     Returns (y (B,1,d), new_cache).  The new row is written into the
     cache's own tensors (the reference returns new arrays): a serving
     cache is owned by its decode loop, and this saves a copy of every
-    attention layer's cache a step."""
+    attention layer's cache a step.  Three steps, which a step over a
+    cache sharded on its slots runs as three regions: ``decode_rows``,
+    ``decode_cache`` and ``decode_out``."""
+    queries, rows = decode_rows(p, x, pos, cfg)
+    out, new = decode_cache(queries, rows, cache, pos, cfg, window=window)
+    return decode_out(p, out.to(x.dtype), cfg), new
+
+
+def decode_rows(p: Params, x: torch.Tensor, pos: torch.Tensor,
+                cfg: ModelConfig):
+    """A decode step's projections of x (B,1,d) at ``pos`` -> (queries,
+    the cache's new rows): ((q (B,H,D),), {"k", "v"} (B,K,D)), RoPE'd;
+    MLA's absorbed ((q_lat (B,H,R), q_rope (B,H,rope)), {"ckv", "kr"})."""
     if cfg.mla:
-        return _mla_decode(p, x, cache, pos, cfg)
+        return _mla_rows(p, x, pos, cfg)
     hd = cfg.hd
-    B = x.shape[0]
     q = dense3(p["wq"], x, cfg.n_heads, hd)[:, 0]              # (B,H,D)
     k1 = dense3(p["wk"], x, cfg.n_kv_heads, hd)[:, 0]
     v1 = dense3(p["wv"], x, cfg.n_kv_heads, hd)[:, 0]
     if cfg.pos_kind == "rope":
         q = L.apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
         k1 = L.apply_rope(k1[:, None], pos[:, None], cfg.rope_theta)[:, 0]
-    S = cache["k"].shape[1]
+    return (q,), {"k": k1, "v": v1}
+
+
+def decode_cache(queries, rows, cache: Dict[str, torch.Tensor],
+                 pos: torch.Tensor, cfg: ModelConfig, *, window: int = 0,
+                 chunk: Optional[Chunk] = None):
+    """``decode_rows``' rows written into the cache at ``pos``'s slot
+    (a ring's for a window) and its queries attended over the cache ->
+    (out (B,H,Dv) float32, MLA's (B,H,R) latent in the cache's dtype;
+    the new cache).  With ``chunk`` the cache is this rank's chunk of the
+    slots: a row is written only where its slot falls in the chunk, and
+    the chunk's attention is combined with the other ranks' (``Chunk``).
+    """
+    if cfg.mla:
+        return _mla_cache(queries, rows, cache, pos, cfg, chunk)
+    (q,) = queries
+    S = cache["k"].shape[1] if chunk is None else chunk.total
     slot = (pos % S) if window else pos                        # ring buffer
-    k = _cache_insert(cache["k"], k1, slot)
-    v = _cache_insert(cache["v"], v1, slot)
-    kv_pos = _cache_positions(pos, S, window)
-    out = decode_attend(q, k, v, pos, kv_pos, scale=1.0 / math.sqrt(hd),
-                        softcap=cfg.attn_softcap, window=window).to(x.dtype)
-    y = L.dense(p["wo"], out.reshape(B, 1, -1)[:, 0])[:, None]
-    return y, {"k": k, "v": v}
+    scale = 1.0 / math.sqrt(cfg.hd)
+    if chunk is None:
+        k = _cache_insert(cache["k"], rows["k"], slot)
+        v = _cache_insert(cache["v"], rows["v"], slot)
+        kv_pos = _cache_positions(pos, S, window)
+        out = decode_attend(q, k, v, pos, kv_pos, scale=scale,
+                            softcap=cfg.attn_softcap, window=window)
+    else:
+        k = _chunk_insert(cache["k"], rows["k"], slot - chunk.offset)
+        v = _chunk_insert(cache["v"], rows["v"], slot - chunk.offset)
+        kv_pos = _cache_positions(pos, S, window, chunk.offset, k.shape[1])
+        out = chunk.combine(*decode_attend_chunk(
+            q, k, v, pos, kv_pos, scale=scale, softcap=cfg.attn_softcap,
+            window=window))
+    return out, {"k": k, "v": v}
+
+
+def decode_out(p: Params, out: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """``decode_cache``'s output (B,H,Dv) in the compute dtype (MLA's
+    latent (B,H,R), expanded by W_uv) through the output projection ->
+    y (B,1,d)."""
+    B = out.shape[0]
+    if cfg.mla:
+        H, R = cfg.n_heads, cfg.kv_lora_rank
+        w_uv = p["w_uv"]["w"].reshape(R, H, cfg.v_head_dim).to(out.dtype)
+        out = torch.einsum("bhr,rhd->bhd", out, w_uv)
+    return L.dense(p["wo"], out.reshape(B, 1, -1)[:, 0])[:, None]
 
 
 def cross_decode(p: Params, x: torch.Tensor, ck: torch.Tensor,
@@ -209,9 +339,25 @@ def _cache_insert(buf: torch.Tensor, new: torch.Tensor,
     return buf
 
 
-def _cache_positions(pos: torch.Tensor, S: int, window: int) -> torch.Tensor:
-    """Absolute position of every cache slot; -1 marks unwritten slots."""
-    idx = torch.arange(S, device=pos.device)[None, :]         # (1,S)
+def _chunk_insert(buf: torch.Tensor, new: torch.Tensor,
+                  at: torch.Tensor) -> torch.Tensor:
+    """Write per-batch row ``new`` at per-batch index ``at`` of this
+    chunk of the slots, in place, where ``at`` falls in the chunk (the
+    rank that owns the slot writes it; the others keep their rows)."""
+    n = buf.shape[1]
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    inside = ((at >= 0) & (at < n)).reshape(-1, *[1] * (new.dim() - 1))
+    at = at.clamp(0, n - 1)
+    buf[rows, at] = torch.where(inside, new.to(buf.dtype), buf[rows, at])
+    return buf
+
+
+def _cache_positions(pos: torch.Tensor, S: int, window: int, start: int = 0,
+                     n: Optional[int] = None) -> torch.Tensor:
+    """Absolute position of every cache slot (of slots start .. start + n
+    - 1 when given: a chunk of the S); -1 marks unwritten slots."""
+    idx = torch.arange(start, start + (S if n is None else n),
+                       device=pos.device)[None, :]            # (1,n)
     if window:
         # slot s holds the most recent position p with p % S == s, p <= pos
         cur = pos[:, None]
@@ -237,9 +383,11 @@ def padded_head_dim(cfg: ModelConfig) -> int:
                                cfg.v_head_dim))
 
 
-def _mla_forward(p, x, positions, cfg, *, return_kv=False):
-    """Expanded MLA for training and prefill: every head's keys and values
-    rebuilt from the latent, one rope key shared by all heads."""
+def _mla_qkv(p, x, positions, cfg):
+    """Expanded MLA's projections for training and prefill: every head's
+    keys and values rebuilt from the latent, one rope key shared by all
+    heads -> (q, k (B,S,H,qk_nope + qk_rope), v (B,S,H,v_head), {"ckv",
+    "kr"})."""
     B, S, _ = x.shape
     H, rope = cfg.n_heads, cfg.qk_rope_dim
     q_nope, q_rope = _mla_qkr(p, x, positions, cfg)
@@ -248,46 +396,68 @@ def _mla_forward(p, x, positions, cfg, *, return_kv=False):
     kr = L.apply_rope(kr, positions, cfg.rope_theta)           # shared head
     k_nope = L.dense(p["w_uk"], ckv).reshape(B, S, H, cfg.qk_nope_dim)
     v = L.dense(p["w_uv"], ckv).reshape(B, S, H, cfg.v_head_dim)
-    qd = cfg.qk_nope_dim + rope
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr.expand(B, S, H, rope)], dim=-1)
+    return q, k, v, {"ckv": ckv, "kr": kr[:, :, 0]}
+
+
+def _mla_attend(p, q, k, v, cfg, **at):
+    """Expanded MLA's attention: heads zero-padded to the kernel's width
+    at the scale of their own, causal (``at``: the queries' ``q_offset``
+    when not 0), and the output projection."""
+    qd = q.shape[-1]
     Dp = padded_head_dim(cfg)
-    q = F.pad(torch.cat([q_nope, q_rope], dim=-1), (0, Dp - qd))
-    k = F.pad(torch.cat([k_nope, kr.expand(B, S, H, rope)], dim=-1),
-              (0, Dp - qd))
-    out = ops.flash_attention(q, k, F.pad(v, (0, Dp - cfg.v_head_dim)),
-                              causal=True, scale=1.0 / math.sqrt(qd))
-    y = L.dense(p["wo"], out[..., :cfg.v_head_dim].reshape(B, S, -1))
-    if return_kv:
-        return y, {"ckv": ckv, "kr": kr[:, :, 0]}
-    return y
+    out = ops.flash_attention(F.pad(q, (0, Dp - qd)), F.pad(k, (0, Dp - qd)),
+                              F.pad(v, (0, Dp - cfg.v_head_dim)),
+                              causal=True, scale=1.0 / math.sqrt(qd), **at)
+    return L.dense(p["wo"],
+                   out[..., :cfg.v_head_dim].reshape(*q.shape[:-2], -1))
 
 
-def _mla_decode(p, x, cache, pos, cfg):
-    """Absorbed MLA decode: scores in the compressed latent space, the
-    cache holding kv_lora_rank + qk_rope_dim floats a token.  The new
-    latent row is written into the cache's own tensors, as ``attn_decode``
-    writes its KV row."""
-    B = x.shape[0]
+def _mla_rows(p, x, pos, cfg):
+    """Absorbed MLA decode's projections (``decode_rows``): W_uk folded
+    into the query, q_lat[b,h,r] = sum_d q_nope[b,h,d] W_uk[r, h*d]; the
+    new latent row and rope key."""
     H, R = cfg.n_heads, cfg.kv_lora_rank
-    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = _mla_qkr(p, x, pos[:, None], cfg)        # (B,1,H,*)
-    # absorb W_uk: q_lat[b,h,r] = sum_d q_nope[b,h,d] * W_uk[r, h*d]
     w_uk = p["w_uk"]["w"].reshape(R, H, cfg.qk_nope_dim).to(x.dtype)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
     ckv1 = L.dense(p["w_dkv"], x)[:, 0]                        # (B,R)
     kr1 = L.dense(p["w_kr"], x)                                # (B,1,rope)
     kr1 = L.apply_rope(kr1[:, :, None], pos[:, None],
                        cfg.rope_theta)[:, 0, 0]
-    ckv = _cache_insert(cache["ckv"], ckv1, pos)
-    kr = _cache_insert(cache["kr"], kr1, pos)
-    kv_pos = _cache_positions(pos, ckv.shape[1], 0)
+    return (q_lat, q_rope[:, 0]), {"ckv": ckv1, "kr": kr1}
+
+
+def _mla_cache(queries, rows, cache, pos, cfg, chunk: Optional[Chunk] = None):
+    """Absorbed MLA decode over the cache (``decode_cache``): scores in
+    the compressed latent space, the cache holding kv_lora_rank +
+    qk_rope_dim floats a token, the new latent row written into the
+    cache's own tensors -> (the attended latent (B,H,R) in the cache's
+    dtype, the new cache)."""
+    q_lat, q_rope = queries
+    dt = q_lat.dtype
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    if chunk is None:
+        ckv = _cache_insert(cache["ckv"], rows["ckv"], pos)
+        kr = _cache_insert(cache["kr"], rows["kr"], pos)
+        kv_pos = _cache_positions(pos, ckv.shape[1], 0)
+    else:
+        ckv = _chunk_insert(cache["ckv"], rows["ckv"], pos - chunk.offset)
+        kr = _chunk_insert(cache["kr"], rows["kr"], pos - chunk.offset)
+        kv_pos = _cache_positions(pos, chunk.total, 0, chunk.offset,
+                                  ckv.shape[1])
     s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
-         + torch.einsum("bhe,bse->bhs", q_rope[:, 0].float(), kr.float())
+         + torch.einsum("bhe,bse->bhs", q_rope.float(), kr.float())
          ) * scale
     valid = (kv_pos >= 0) & (kv_pos <= pos[:, None])
     s = torch.where(valid[:, None, :], s, NEG_INF)
-    prob = torch.softmax(s, dim=-1).to(x.dtype)
-    out_lat = torch.einsum("bhs,bsr->bhr", prob, ckv)          # (B,H,R)
-    w_uv = p["w_uv"]["w"].reshape(R, H, cfg.v_head_dim).to(x.dtype)
-    out = torch.einsum("bhr,rhd->bhd", out_lat, w_uv)
-    y = L.dense(p["wo"], out.reshape(B, 1, -1)[:, 0])[:, None]
-    return y, {"ckv": ckv, "kr": kr}
+    if chunk is None:
+        prob = torch.softmax(s, dim=-1).to(dt)
+        out_lat = torch.einsum("bhs,bsr->bhr", prob, ckv)      # (B,H,R)
+    else:
+        mx = s.amax(dim=-1)
+        w = torch.exp(s - mx[..., None])
+        num = torch.einsum("bhs,bsr->bhr", w.to(dt), ckv)
+        out_lat = chunk.combine(num, mx, w.sum(-1)).to(dt)
+    return out_lat, {"ckv": ckv, "kr": kr}

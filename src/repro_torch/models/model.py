@@ -52,12 +52,24 @@ given ``device`` (``device.resolve``: no card and no ``device`` raises);
 a cache's ``pos`` is (B,) int32, as the reference's.
 
 Given DTensors (a sharded step, ``launch/steps.py``) the model runs
-each layer as one region of plain tensors on each rank's batch shard,
-its weights gathered (``repro_torch._dtensor``, FSDP-style), and the
+each layer as regions of plain tensors on each rank's shards, their
+weights gathered (``repro_torch._dtensor``, FSDP-style), and the
 embedding and the final norm with the unembedding on each rank's rows;
 between them it anchors the activations to the ambient (batch, seq) spec
 where the reference does (``distributed/act_sharding.py``): the
 embedding, the end of each repeat of a group's pattern and the logits.
+Where that spec shards the sequence too (sequence parallelism, as the
+reference's ``batch_seq_spec`` lays it out when the batch does not cover
+the mesh), a layer runs on each rank's (batch, sequence) shard
+(``_layer_fwd_seq``): its norms, projections (RoPE at the shard's
+positions), residuals and dense MLP on the shard, attention of the
+shard's queries over keys and values gathered along the sequence (the
+kernel told the shard's first position); the recurrent scans and the
+MoE's per-sequence dispatch, which the reference anchors on their batch
+alone, on the gathered sequence, their outputs returned to the shards.
+A decode step over a cache sharded on its sequence attends each rank's
+chunk of the slots and combines the chunks across the ranks
+(``_layer_decode_chunks``); no rank gathers a layer's cache.
 On plain tensors the anchors do nothing and no region is entered.
 """
 from __future__ import annotations
@@ -73,8 +85,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike, resolve
-from repro_torch._dtensor import (is_dtensor, on_batch_shards,
-                                  on_row_shards, on_row_sums)
+from repro_torch import _dtensor
+from repro_torch._dtensor import (batch_placements, cache_chunk_dims,
+                                  is_dtensor,
+                                  on_batch_shards, on_cache_chunks,
+                                  on_row_shards, on_row_sums, on_seq_shards,
+                                  seq_placements, seq_shards)
 from repro_torch.distributed.act_sharding import constrain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -245,7 +261,12 @@ def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
     """Returns (x, the layer's MoE aux loss, its decode-cache entry: {}
     unless ``collect_cache``).  ``enc``: the encoder output an ``XATTN``
     layer cross-attends to.  A sharded x: the layer on each rank's batch
-    shard, the aux loss the batch mean."""
+    shard, the aux loss the batch mean; with its sequence sharded too,
+    ``_layer_fwd_seq``."""
+    if seq_shards(x) > 1:
+        return _layer_fwd_seq(spec, p, x, positions, cfg, enc=enc,
+                              collect_cache=collect_cache,
+                              cache_len=cache_len)
     if is_dtensor(x):
         names = _cache_names(spec, cfg) if collect_cache else []
 
@@ -301,6 +322,138 @@ def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
     return x + ff, aux, entry
 
 
+def _has_ffn(spec: LayerSpec, cfg) -> bool:
+    """Whether the layer ends in its own FFN half, norm and residual (a
+    parallel block's FFN runs beside attention; xLSTM blocks have none
+    after them)."""
+    return (spec.ffn != "none" and not cfg.parallel_block
+            and spec.kind not in (MLSTM, SLSTM))
+
+
+def _sub(p: Params, *names) -> Params:
+    """The entries of a layer's parameters that a region uses (only
+    those are gathered into it)."""
+    return {n: p[n] for n in names if n in p}
+
+
+def _back_to(y, x):
+    """A region's output with its sequence gathered, returned to x's
+    (batch, sequence) shards (each rank keeps its rows)."""
+    return y.redistribute(x.device_mesh, seq_placements(x))
+
+
+def _layer_fwd_seq(spec: LayerSpec, p: Params, x, positions, cfg, enc=None,
+                   collect_cache: bool = False, cache_len: int = 0,
+                   causal: bool = True):
+    """``_layer_fwd`` of a DTensor x whose sequence is sharded
+    (``_dtensor.seq_shards``), on each rank's (batch, sequence) shard,
+    x's placements kept.  An attention layer: the norm and the q/k/v
+    projections on the shard, RoPE at its positions; k and v (an MLA
+    prefill's latent too, an ``XATTN`` layer's ``enc``) gathered along
+    the sequence, whose backward reduce-scatters their gradients; the
+    shard's queries over them (``q_offset`` its first position), the
+    output projection, the residual, cross-attention, and a dense FFN
+    half, on the shard.  A recurrent mixer, and an MoE FFN half, run on
+    the gathered sequence (their regions on the batch shards) and return
+    to the shards.  The cache entry keeps its sequence gathered, as the
+    batch region's; the aux loss is the batch mean (0 without MoE)."""
+    eps = cfg.norm_eps
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    entry: Params = {}
+    ffn_done = not _has_ffn(spec, cfg)
+    if spec.kind in (ATTN, LOCAL_ATTN, XATTN):
+        window = cfg.window if spec.kind == LOCAL_ATTN else 0
+        latent = collect_cache and cfg.mla
+        proj = {n: w for n, w in p["attn"].items() if n != "wo"}
+
+        def project(a, _, pl, off):
+            h = L.apply_norm(pl["ln1"], a[0], eps)
+            q, k, v, lat = A.qkv(pl["attn"], h,
+                                 positions[off:off + h.shape[1]], cfg)
+            return (q, k, v, *(lat.values() if latent else ()))
+        q, *kv = on_seq_shards(project, (x,), (), {"ln1": p["ln1"],
+                                                   "attn": proj},
+                               ["seq"] * (5 if latent else 3))
+        gathered = [t.redistribute(t.device_mesh, batch_placements(t))
+                    for t in kv]
+        if spec.kind == XATTN:
+            gathered.append(enc.redistribute(enc.device_mesh,
+                                             batch_placements(enc)))
+        ffn_here = not ffn_done and spec.ffn != "moe"
+        ffn_done = ffn_done or ffn_here
+        if cfg.parallel_block and spec.ffn == "moe":
+            raise NotImplementedError("a parallel block's MoE FFN")
+        names = (["ckv", "kr"] if cfg.mla else ["k", "v"]) \
+            if collect_cache else []
+        if collect_cache and spec.kind == XATTN:
+            names += ["ck", "cv"]
+
+        def finish(a, g, pl, off):
+            xl, ql = a
+            att = A.attend(pl["attn"], ql, g[0], g[1], cfg, causal=causal,
+                           window=window, q_offset=off)
+            if cfg.parallel_block:
+                ff, _ = _ffn_apply(spec, pl, L.apply_norm(pl["ln1"], xl, eps),
+                                   cfg)
+                y = xl + att + ff
+            else:
+                y = xl + att
+            out = {}
+            if collect_cache:
+                out = _pad_kv(dict(zip(names[:2], g[2:4] if latent
+                                       else g[:2])), cache_len, window, cfg)
+            if spec.kind == XATTN:
+                hx = L.apply_norm(pl["ln_x"], y, eps)
+                xa, ckv = A.attn_forward(pl["cross"], hx, positions, cfg,
+                                         kv_source=g[-1], return_kv=True)
+                y = y + xa
+                out.update(ck=ckv["k"], cv=ckv["v"])
+            if ffn_here:
+                ff, _ = _ffn_apply(spec, pl, L.apply_norm(pl["ln2"], y, eps),
+                                   cfg)
+                y = y + ff
+            return (y, *(out[n] for n in names))
+        pf = _sub(p, "ln_x", "cross", "ln2", "ffn") if not cfg.parallel_block \
+            else _sub(p, "ln1", "ffn")
+        pf["attn"] = {"wo": p["attn"]["wo"]}
+        y, *vals = on_seq_shards(finish, (x, q), gathered, pf,
+                                 ["seq"] + ["batch"] * len(names))
+        entry = dict(zip(names, vals))
+    else:
+        names = _cache_names(spec, cfg) if collect_cache else []
+        mixer = _sub(p, "ln1", spec.kind)
+
+        def local(a, pl):
+            h = L.apply_norm(pl["ln1"], a[0], eps)
+            fwd = getattr(R, f"{spec.kind}_forward")
+            if collect_cache:
+                yl, e = fwd(pl[spec.kind], h, cfg, return_cache=True)
+            else:
+                yl, e = fwd(pl[spec.kind], h, cfg), {}
+            return (a[0] + yl, *(e[n] for n in names))
+        y, *vals = on_batch_shards(local, (x,), mixer,
+                                   ["batch"] * (1 + len(names)))
+        y = _back_to(y, x)
+        entry = dict(zip(names, vals))
+    if not ffn_done:
+        if spec.ffn == "moe":
+            def moe(a, pl):
+                ff, a_ = _ffn_apply(spec, pl,
+                                    L.apply_norm(pl["ln2"], a[0], eps), cfg)
+                return a[0] + ff, a_
+            y, aux = on_batch_shards(moe, (y,), _sub(p, "ln2", "ffn"),
+                                     ["batch", "mean"])
+            y = _back_to(y, x)
+        else:
+            def dense(a, _, pl, off):
+                ff, _ = _ffn_apply(spec, pl,
+                                   L.apply_norm(pl["ln2"], a[0], eps), cfg)
+                return a[0] + ff
+            y = on_seq_shards(dense, (y,), (), _sub(p, "ln2", "ffn"),
+                              ["seq"])
+    return y, aux, entry
+
+
 #: the matrix products whose outputs remat "dots" keeps
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
          torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
@@ -342,7 +495,12 @@ def _layer_decode(spec: LayerSpec, p: Params, x, cache: Params, pos, cfg):
     """x: (B,1,d); returns (x, new_cache_entry).  A sharded x: the step
     on each rank's batch shard, the cache gathered along any other dim
     for it (the new row written at its slot) and the updated entry put
-    back on the cache's placements."""
+    back on the cache's placements; a self-attention cache sharded on
+    its slots stays so (``_layer_decode_chunks``)."""
+    if is_dtensor(x) and spec.kind in (ATTN, LOCAL_ATTN, XATTN):
+        dims = cache_chunk_dims(cache["ckv" if cfg.mla else "k"])
+        if dims:
+            return _layer_decode_chunks(spec, p, x, cache, pos, cfg, dims)
     if is_dtensor(x):
         names = list(cache)
 
@@ -383,6 +541,71 @@ def _layer_decode(spec: LayerSpec, p: Params, x, cache: Params, pos, cfg):
     return x, new
 
 
+def _layer_decode_chunks(spec: LayerSpec, p: Params, x, cache: Params, pos,
+                         cfg, dims):
+    """``_layer_decode`` of a sharded x whose self-attention cache is
+    sharded on its slots over mesh dims ``dims``, in three regions: the
+    norm and the new token's projections on each rank's batch shard
+    (``attention.decode_rows``); the queries and rows gathered along
+    ``dims`` (one token a sequence) and attended over each rank's chunk
+    of the cache, left where it is, the row written by the rank that
+    owns its slot and the chunks combined across ``dims``
+    (``attention.decode_cache``, ``_dtensor.chunk_combine``); the output
+    projection, cross-attention (its ``ck`` / ``cv`` gathered as the
+    batch region does) and the FFN on the batch shards again.  The
+    updated entry goes back on the cache's placements."""
+    from torch.distributed.tensor import Replicate
+    eps = cfg.norm_eps
+    window = cfg.window if spec.kind == LOCAL_ATTN else 0
+    own = [n for n in cache if n not in ("ck", "cv")]
+    mesh = x.device_mesh
+    proj = {n: w for n, w in p["attn"].items() if n not in ("wo", "w_uv")}
+
+    def rows(a, pl):
+        q, r = A.decode_rows(pl["attn"], L.apply_norm(pl["ln1"], a[0], eps),
+                             a[1], cfg)
+        return (*q, *(r[n] for n in own))
+    nq = 2 if cfg.mla else 1            # MLA's (q_lat, q_rope), else (q,)
+    flat = on_batch_shards(rows, (x, pos), {"ln1": p["ln1"], "attn": proj},
+                           ["batch"] * (nq + len(own)))
+    rp = tuple(Replicate() if i in dims else b
+               for i, b in enumerate(batch_placements(x)))
+    flat = [t.redistribute(mesh, rp) for t in (*flat, pos)]
+    combine = _dtensor.chunk_combine(mesh, dims)
+    total = cache[own[0]].shape[1]
+
+    def attend(a, chunks, _, off):
+        out, new = A.decode_cache(
+            a[:nq], dict(zip(own, a[nq:-1])), dict(zip(own, chunks)), a[-1],
+            cfg, window=window, chunk=A.Chunk(off, total, combine))
+        return (out.to(a[0].dtype), *(new[n] for n in own))
+    out, *vals = on_cache_chunks(attend, flat, [cache[n] for n in own], dims,
+                                 {}, ["batch"] + ["chunk"] * len(own))
+    out = out.redistribute(mesh, batch_placements(x))
+
+    def finish(a, pl):
+        xl, outl = a[0], a[1]
+        att = A.decode_out(pl["attn"], outl, cfg)
+        if cfg.parallel_block:
+            ff, _ = _ffn_apply(spec, pl, L.apply_norm(pl["ln1"], xl, eps), cfg)
+            return xl + att + ff
+        xl = xl + att
+        if spec.kind == XATTN:
+            hx = L.apply_norm(pl["ln_x"], xl, eps)
+            xl = xl + A.cross_decode(pl["cross"], hx, a[2], a[3], cfg)
+        if spec.ffn != "none":
+            ff, _ = _ffn_apply(spec, pl, L.apply_norm(pl["ln2"], xl, eps), cfg)
+            xl = xl + ff
+        return xl
+    pf = _sub(p, "ln1", "ln_x", "cross", "ln2", "ffn")
+    pf["attn"] = _sub(p["attn"], "wo", "w_uv")
+    y = on_batch_shards(finish, (x, out, *(cache[n] for n in ("ck", "cv")
+                                          if n in cache)), pf, ["batch"])
+    new = {n: v.redistribute(mesh, cache[n].placements)
+           for n, v in zip(own, vals)}
+    return y, {n: new.get(n, cache[n]) for n in cache}
+
+
 def _init_cache_entry(spec: LayerSpec, cfg: ModelConfig, batch: int,
                       cache_len: int, device, enc_len: int = 0) -> Params:
     if spec.kind in (ATTN, XATTN):
@@ -408,6 +631,9 @@ ENCODER_SPEC = LayerSpec(ATTN, "mlp")
 
 
 def _encoder_layer(p: Params, x, positions, cfg):
+    if seq_shards(x) > 1:                   # on each (batch, seq) shard
+        return _layer_fwd_seq(ENCODER_SPEC, p, x, positions, cfg,
+                              causal=False)[0]
     if is_dtensor(x):                       # on each rank's batch shard
         return on_batch_shards(
             lambda xl, pl: _encoder_layer(pl, xl, positions, cfg), x, p,
@@ -583,6 +809,8 @@ class LM:
         enc = self._encoded(params, batch, train=True)
         x, n_prefix = self._prefixed(x, batch)
         x, positions = self._positions_in(x)
+        if n_prefix:
+            x = constrain(x)
 
         def layer(spec, lp, x, enc):
             return _layer_fwd(spec, lp, x, positions, self.cfg, enc=enc)[:2]
@@ -626,8 +854,10 @@ class LM:
         tokens = batch["tokens"]
         x = self._embed_in(params, tokens)
         enc = self._encoded(params, batch)
-        x, _ = self._prefixed(x, batch)
+        x, n_prefix = self._prefixed(x, batch)
         x, positions = self._positions_in(x)
+        if n_prefix:
+            x = constrain(x)
         layers: List[Params] = []
         for spec, lp, end in zip(self.specs, params["layers"], self.ends):
             x, _, entry = _layer_fwd(spec, lp, x, positions, self.cfg,

@@ -398,22 +398,30 @@ def test_cache_names_are_the_prefill_entries(arch):
 
 
 # --- the sharded step on 4 gloo ranks --------------------------------------
+@pytest.mark.parametrize("batch", [4, 2])
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-moe-3b-a800m"])
-def test_sharded_step_on_four_gloo_ranks(arch, tmp_path):
-    """2 AdamW steps on a (2, 2) mesh of 4 gloo ranks (batch 4 x 16)
-    within 1e-5 of the largest parameter of the unsharded steps, on every
-    rank; with each gradient's sum over the batch shards dropped, past
-    it; the collectives of the first step equal the cost analyser's count
-    of it on a fake (2, 2) group."""
-    normal, fault = shard_check.run_ranks(
-        4, arch, (2, 2), 4, 16, 2, faults=(False, True), timeout_s=240,
+def test_sharded_step_on_four_gloo_ranks(arch, batch, tmp_path):
+    """2 AdamW steps on a (2, 2) mesh of 4 gloo ranks (batch 4 x 16; batch
+    2 x 16 leaves "model" to the sequence, so the step runs
+    sequence-parallel) within 1e-5 of the largest parameter of the
+    unsharded steps, on every rank; with each gradient's sum over the
+    batch shards dropped, past it (batch 2: also with the pending sum of
+    the gathered keys' and values' gradients dropped); the collectives of
+    the first step equal the cost analyser's count of it on a fake
+    (2, 2) group."""
+    faults = (False, True) + (("gathered",) if batch == 2 else ())
+    normal, *faulty = shard_check.run_ranks(
+        4, arch, (2, 2), batch, 16, 2, faults=faults, timeout_s=240,
         work=str(tmp_path))
     for r in normal:
         assert r["rel_err"] <= shard_check.LIMIT, r
         assert np.allclose(r["losses"], r["plain_losses"], rtol=1e-5)
-    assert all(r["rel_err"] > shard_check.LIMIT for r in fault), fault
+        assert r["seq_axes"] == (["model"] if batch == 2 else None)
+    for fault in faulty:
+        assert all(r["rel_err"] > shard_check.LIMIT for r in fault), fault
     cfg = TR.get_config(arch).reduced()
-    cost = shard_check.fake_cost(cfg, TCM.ShapeSpec("check", 16, 4, "train"),
+    cost = shard_check.fake_cost(cfg,
+                                 TCM.ShapeSpec("check", 16, batch, "train"),
                                  (2, 2))
     assert cost["collective_counts"] == normal[0]["comms"]
     import torch.distributed as dist
