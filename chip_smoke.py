@@ -267,10 +267,13 @@ script exits non-zero and prints no result):
    the kernel path's loss and per-leaf gradients against the plain bf16
    path and the float32 model (``GRAD_FACTOR``, ``LOSS_FACTOR``).  (d)
    ``PopulationTrainer``: 3 trials at full width, depth 3, batch 1 x
-   1024, each with its own lr, weight decay and seed, 4 steps: one launch
-   of each kernel a layer a step for all trials, trial-steps a second,
-   peak memory; then each trial alone through the same step unbatched,
-   every loss within ``POP_TOL`` of the population's.
+   1024, each with its own lr, weight decay and seed, 4 steps, twice: at
+   the config's own remat "full" (each layer's forward recomputed in the
+   backward: 2 / 1 / 4 / 2 launches a step for all trials) and at remat
+   "none" (one launch of each kernel a layer a step); trial-steps a
+   second and peak memory of each; then each trial alone through the
+   same step unbatched at the same remat, every loss within ``POP_TOL``
+   of the population's.
    (e) ``flash_attention_bwd`` at the seven layouts the MoE,
    encoder-decoder, parallel-block and VLM families train at (B 1, the
    train_4k sequence of 4096, bf16): granite-moe's (H 24, K 8, D 64),
@@ -304,7 +307,15 @@ script exits non-zero and prints no result):
    ``concrete_inputs`` batches: exactly two forward and one backward
    ``flash_attention`` launch an attention call a step, finite losses;
    ms a step, tokens a second and peak memory.  command-r-plus-104b takes
-   no step: one layer and its tied table are 75.5 GB of state.
+   no step: one layer and its tied table are 75.5 GB of state.  (h) the
+   families' populations at full width and remat "full", held as (d)
+   holds (``POP_FAMILIES``): granite-moe at depth 2 and deepseek at depth
+   2 (the MoE dispatch, MLA under vmap), whisper whole over 1536 float
+   frames and llava at depth 1 over 2304 float image positions, batch 1
+   from ``concrete_inputs``; two forward and one backward launch an
+   attention call a step for all trials; whisper's and llava's
+   populations fed their float inputs cast to integers (as the trainer
+   once fed them) must miss the hold at the first step.
 
 9. the mesh and sharding tooling, right after 8g — (a) the dry run
    (``launch/dryrun.py``) of ``DRYRUN_CELLS``, every arch x shape on the
@@ -384,10 +395,16 @@ cases and serving and prints their lines and the card.
 builds the kernels, runs llava's attention cases and the VLM and xLSTM
 serving and prints their lines and the card.
 
-    python3 chip_smoke.py --train          # phases 1 and 8 alone
+    python3 chip_smoke.py --train          # phases 1 and 8a-8d alone
 
 builds the kernels, runs LM training's checks and prints their lines and
 the card.
+
+    python3 chip_smoke.py --population     # phases 1, 8d and 8h alone
+
+builds the kernels, runs the populations (recurrentgemma-2b at remat
+"full" and "none", the families at "full") with their holds and prints
+their lines and the card.
 
     python3 chip_smoke.py --train-families # phases 1 and 8e-8g alone
 
@@ -4049,8 +4066,10 @@ LOSS_FLOOR = 1e-3
 HOLD_LAUNCHES = {"flash_attention": 2, "flash_attention_bwd": 1,
                  "rglru_scan": 4, "rglru_scan_bwd": 2}
 #: phase 8d: the population, P = 3 trials at full width and depth 3,
-#: batch 1 x 1024 each, 4 steps, remat "none" (torch.utils.checkpoint
-#: does not compose with torch.func.grad); one launch a layer a step
+#: batch 1 x 1024 each, 4 steps, at the config's own remat "full"
+#: (``HOLD_LAUNCHES`` a step: each layer's forward twice) and at remat
+#: "none" (``POP_LAUNCHES``: one launch a layer a step)
+POP_REMATS = ("full", "none")
 POP_TRIALS = ({"lr": 1e-4, "weight_decay": 0.0, "seed": 0},
               {"lr": 3e-4, "weight_decay": 0.1, "seed": 1},
               {"lr": 1e-3, "weight_decay": 0.01, "seed": 2})
@@ -4063,6 +4082,30 @@ POP_LAUNCHES = {"flash_attention": 1, "flash_attention_bwd": 1,
 #: single trial's are not, so the two round differently; 1.6e-3 of the
 #: initial ln(256000) = 12.45, well under one bf16 step (2^-8) of it
 POP_TOL = 2e-2
+#: |population - single-trial| / single-trial gradient norm limit at each
+#: step: the same rounding over a norm of ~1e8-1e9 bf16 gradients; the
+#: gradient norm reads every input (the loss at random weights barely
+#: reads an encoder's or a prefix's: the final norm rescales the state)
+POP_NORM_TOL = 2e-2
+#: the same for an MoE population: the router's bf16 logits differ
+#: between the batched and the unbatched products, a few of the (token,
+#: choice) pairs go to other experts, and the gradient norm follows
+#: (granite-moe 1.07% and 2.20% in two runs on the H100)
+POP_NORM_TOL_MOE = 5e-2
+#: phase 8h: arch -> (layers, None: all; text positions; trials), full
+#: width, remat "full", batch 1 from ``concrete_inputs``; state at 16
+#: bytes a parameter (float32 parameters, m, v and gradients) x trials:
+#: granite-moe 2 layers x 3 trials 13.3 GB, deepseek its dense layer and
+#: one MoE layer x 2 trials 34.7 GB, whisper whole (24 + 24 layers over
+#: 1536 frames) x 3 trials 36.4 GB, llava one layer over 2304 image
+#: positions x 2 trials 47.2 GB.  command-r-plus-104b does not run: one
+#: layer and its tied table are 4.72 B parameters, 151 GB of state at
+#: two trials
+POP_FAMILIES = {"granite-moe-3b-a800m": (2, 1024, 3),
+                "deepseek-v2-lite-16b": (2, 1024, 2),
+                "whisper-medium": (None, 1024, 3),
+                "llava-next-34b": (1, 1024, 2)}
+POP_FAMILY_STEPS = 3
 
 
 def bwd_excess(got, want32, dtype: str) -> float:
@@ -4433,24 +4476,41 @@ def phase_train_parity():
          worst_leaf_ratio=max(ke / max(pe, 1e-30) for ke, pe in leaves))
 
 
-def phase_population():
-    """8d: ``PopulationTrainer`` with three trials at full width, depth 3,
-    then each trial alone through the same single-trial step."""
-    from repro_torch.configs import get_config
+def population_spied(cfg, norms: list):
+    """A ``PopulationTrainer`` of ``cfg`` on the card whose step appends
+    each step's per-trial gradient norms to ``norms``."""
     from repro_torch.core import vmap_trials as vt
-    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.optim import AdamWConfig
+    trainer = vt.PopulationTrainer(cfg, AdamWConfig(),
+                                   device=torch.device("cuda", 0))
+    step = trainer.step
+
+    def spied(*args):
+        state, metrics = step(*args)
+        norms.append(metrics["grad_norm"].float().tolist())
+        return state, metrics
+    trainer.step = spied
+    return trainer
+
+
+def population_hold(cfg, trials, data, steps: int, launches: dict,
+                    fault=None) -> dict:
+    """``PopulationTrainer`` of ``cfg`` over ``trials`` for ``steps``
+    steps on ``data(t)``, exactly ``launches`` a step for all trials,
+    then each trial alone through ``make_trial_step`` at the same remat,
+    every loss within ``POP_TOL`` and every gradient norm within
+    ``POP_NORM_TOL`` (an MoE's ``POP_NORM_TOL_MOE``) of the population's
+    -> the line.  With ``fault`` ((name, a batch -> the batch it
+    plants)), the population run again on the planted batches must miss
+    that hold."""
+    from repro_torch.core import vmap_trials as vt
     from repro_torch.optim import AdamWConfig, adamw_init
     dev = torch.device("cuda", 0)
-    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=HOLD_DEPTH,
-                              remat="none")
-    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=POP_SEQ, global_batch=1,
-                                    seed=0)).batch_at
     counters = lm_counters()
     counts = lambda: {n: c.count for n, c in counters.items()}  # noqa: E731
-    resident = free_card("population")
+    resident = free_card(f"population {cfg.name} {cfg.remat}")
     torch.cuda.reset_peak_memory_stats()
-    trainer = vt.PopulationTrainer(cfg, AdamWConfig(), device=dev)
+    trainer = population_spied(cfg, norms := [])
     marks = []
 
     def report(t, losses):
@@ -4460,50 +4520,132 @@ def phase_population():
         c.reset()
     torch.cuda.synchronize()
     marks.append((time.perf_counter(), counts(), None))
-    objective = trainer.train(list(POP_TRIALS), data, POP_STEPS,
-                              eval_last=POP_STEPS, report=report)
-    launches = counts()
+    objective = trainer.train(list(trials), data, steps, eval_last=steps,
+                              report=report)
+    total = counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     step_launches = [{n: c - a[1][n] for n, c in b[1].items()}
                      for a, b in zip(marks, marks[1:])]
     step_s = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
     for i, sl in enumerate(step_launches):
-        check(sl == POP_LAUNCHES, f"population step {i} launches {sl}")
+        check(sl == launches,
+              f"{cfg.name} {cfg.remat} population step {i} launches {sl}, "
+              f"not {launches}")
     pop = [m[2] for m in marks[1:]]
     check(all(math.isfinite(x) for row in pop for x in row),
-          f"population losses {pop}")
+          f"{cfg.name} population losses {pop}")
     del trainer
-    free_card("population_done")
+    free_card(f"population {cfg.name} done")
     # each trial alone: the same step without vmap, on its own state
     model, one_step = vt.make_trial_step(cfg, AdamWConfig())
-    seq = []
-    for a in POP_TRIALS:
+    seq, seq_norms = [], []
+    for a in trials:
         params = model.init(a["seed"], dev)
         state = {"params": params, "opt": adamw_init(params)}
         lr = torch.tensor(a["lr"], device=dev)
         wd = torch.tensor(a["weight_decay"], device=dev)
-        losses = []
-        for t in range(POP_STEPS):
-            batch = {k: torch.as_tensor(v, device=dev).long()
-                     for k, v in data(t).items()}
+        losses, gnorms = [], []
+        for t in range(steps):
+            batch = {k: vt._on_device(v, dev) for k, v in data(t).items()}
             state, metrics = one_step(state, batch, lr, wd)
             losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
         seq.append(losses)
+        seq_norms.append(gnorms)
         del state, params
         free_card("single_trial")
-    diff = max(abs(pop[t][i] - seq[i][t]) for i in range(len(POP_TRIALS))
-               for t in range(POP_STEPS))
-    check(diff <= POP_TOL,
-          f"population vs single trials: {diff} > {POP_TOL}")
+
+    def excess(losses, gnorms):
+        """(largest |loss - single|, largest relative gradient-norm
+        difference) over the trials and steps."""
+        idx = [(i, t) for i in range(len(trials)) for t in range(steps)]
+        return (max(abs(losses[t][i] - seq[i][t]) for i, t in idx),
+                max(abs(gnorms[t][i] - seq_norms[i][t]) / seq_norms[i][t]
+                    for i, t in idx))
+    norm_tol = POP_NORM_TOL_MOE if cfg.moe else POP_NORM_TOL
+    diff, norm_diff = excess(pop, norms)
+    check(diff <= POP_TOL and norm_diff <= norm_tol,
+          f"{cfg.name} {cfg.remat} population vs single trials: loss "
+          f"{diff} (limit {POP_TOL}), gradient norm {norm_diff} (limit "
+          f"{norm_tol})")
+    planted = None
+    if fault is not None:
+        name, plant = fault
+        bad, bad_norms = [], []
+        population_spied(cfg, bad_norms).train(
+            list(trials), lambda t: plant(data(t)), steps, eval_last=steps,
+            report=lambda t, losses: bad.append(losses.tolist()))
+        miss, norm_miss = excess(bad, bad_norms)
+        over = max(miss / POP_TOL, norm_miss / norm_tol)
+        check(over > 1, f"{cfg.name}: planted {name} within the hold (loss "
+              f"{miss}, gradient norm {norm_miss})")
+        planted = dict(name=name, loss_diff=miss, grad_norm_diff=norm_miss,
+                       over_limit=over)
+        free_card(f"population {cfg.name} fault done")
     warm = step_s[1:]
-    emit("population", trials=len(POP_TRIALS), depth=HOLD_DEPTH,
-         seq=POP_SEQ, steps=POP_STEPS, step_s=step_s,
-         trial_steps_per_s=len(POP_TRIALS) * len(warm) / sum(warm),
-         peak_memory_gb=peak, resident_before_gb=resident,
-         losses=pop, single_trial_losses=seq, max_abs_diff=diff,
-         objective=objective.tolist(), launches=launches,
-         step_launches=step_launches[0])
-    return launches
+    return dict(arch=cfg.name, remat=cfg.remat, trials=len(trials),
+                layers=cfg.n_layers, encoder_layers=cfg.encoder_layers,
+                steps=steps, step_s=step_s,
+                trial_steps_per_s=len(trials) * len(warm) / sum(warm),
+                peak_memory_gb=peak, resident_before_gb=resident,
+                losses=pop, single_trial_losses=seq, max_abs_diff=diff,
+                grad_norms=norms, single_trial_grad_norms=seq_norms,
+                max_grad_norm_rel_diff=norm_diff, grad_norm_limit=norm_tol,
+                objective=objective.tolist(), launches=total,
+                step_launches=step_launches[0], planted=planted)
+
+
+def phase_population():
+    """8d: ``population_hold`` of three trials at full width, depth 3, at
+    each remat of ``POP_REMATS`` -> the launches summed over the runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    data = TokenPipeline(DataConfig(
+        vocab_size=get_config(TRAIN["arch"]).vocab_size, seq_len=POP_SEQ,
+        global_batch=1, seed=0)).batch_at
+    want = {"full": HOLD_LAUNCHES, "none": POP_LAUNCHES}
+    total = {n: 0 for n in lm_counters()}
+    for remat in POP_REMATS:
+        cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                                  n_layers=HOLD_DEPTH, remat=remat)
+        line = population_hold(cfg, POP_TRIALS, data, POP_STEPS,
+                               want[remat])
+        emit("population", seq=POP_SEQ, **line)
+        for n in total:
+            total[n] += line["launches"][n]
+    return total
+
+
+def as_integers(batch):
+    """8h's planted fault: every entry cast to integers, as the population
+    trainer once cast a batch (whisper's frames, llava's embeddings)."""
+    return {k: v.long() for k, v in batch.items()}
+
+
+def phase_population_families():
+    """8h: ``population_hold`` of each family of ``POP_FAMILIES`` at full
+    width and its own remat "full" on ``concrete_inputs`` batches, the
+    families with float inputs with their integer cast planted -> the
+    launches summed over them."""
+    from repro_torch.configs import concrete_inputs
+    from repro_torch.models import ShapeSpec
+    dev = torch.device("cuda", 0)
+    total = {n: 0 for n in lm_counters()}
+    for arch, (layers, text, P) in POP_FAMILIES.items():
+        cfg = served_config(arch, layers)
+        check(cfg.remat == "full", f"{arch}: remat {cfg.remat}")
+        shape = ShapeSpec("train", text + cfg.n_img_tokens, 1, "train")
+        fault = (("inputs_as_integers", as_integers)
+                 if cfg.family in ("encdec", "vlm") else None)
+        line = population_hold(
+            cfg, POP_TRIALS[:P],
+            lambda t: concrete_inputs(cfg, shape, seed=t, device=dev),
+            POP_FAMILY_STEPS, step_launches(cfg), fault)
+        emit("population_family", text=text, published_layers=(
+            served_config(arch, None).n_layers), **line)
+        for n in total:
+            total[n] += line["launches"][n]
+    return total
 
 
 # ------------------------------------------------------- phases 8e-8g
@@ -5570,6 +5712,12 @@ def main() -> int:
         phase_population()
         print(card_line())
         return 0
+    if sys.argv[1:] == ["--population"]:
+        phase_card()
+        phase_population()
+        phase_population_families()
+        print(card_line())
+        return 0
     if sys.argv[1:] == ["--train-families"]:
         phase_card()
         phase_family_bwd()
@@ -5619,6 +5767,7 @@ def main() -> int:
     train = phase_train()
     phase_train_parity()
     population = phase_population()
+    pop_families = phase_population_families()
     family_layouts = phase_family_bwd()
     phase_family_parity()
     families = phase_family_train()
@@ -5704,6 +5853,7 @@ def main() -> int:
         k["fleet_launches"] = fleet.get(k["name"], 0)
         k["train_launches"] = train.get(k["name"], 0)
         k["population_launches"] = population.get(k["name"], 0)
+        k["population_families_launches"] = pop_families.get(k["name"], 0)
         k["moe_serve_launches"] = moe.get(k["name"], 0)
         k["encdec_serve_launches"] = encdec.get(k["name"], 0)
         k["vlm_serve_launches"] = vlm.get(k["name"], 0)

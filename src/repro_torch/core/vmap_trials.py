@@ -15,9 +15,11 @@ The step is ``torch.func.vmap`` over ``torch.func.grad_and_value`` of
 not cast them), then AdamW without coupled decay and each trial's own
 decoupled weight decay, p − lr·wd·p_old, as the reference applies it.
 The update writes the state in place (``adamw_update``), which the
-stacked state's size needs.  ``torch.utils.checkpoint`` does not compose
-with ``torch.func.grad`` (its saved-tensor hooks are refused), so a
-population needs ``cfg.remat == "none"``.
+stacked state's size needs.  The config's remat holds here too: under
+``torch.func`` the model rematerializes through an ``autograd.Function``
+of its own (``models/model.py`` ``_Remat``; ``torch.utils.checkpoint``'s
+saved-tensor hooks are refused there), which keeps each layer's input
+and recomputes the layer in the backward, for "dots" as for "full".
 
 All trials of a population share parameter shapes; only leaf
 hyperparameters (learning rate, weight decay, init seed) vary.
@@ -54,15 +56,18 @@ def _stack_init(model: LM, seeds: Sequence[int], device) -> Dict[str, Any]:
     return stacked
 
 
+def _on_device(v, device) -> torch.Tensor:
+    """A batch entry on ``device``: integers as ``long``, floats as they
+    are."""
+    t = (v.to(device) if isinstance(v, torch.Tensor)
+         else torch.as_tensor(np.asarray(v), device=device))
+    return t if t.is_floating_point() else t.long()
+
+
 def make_trial_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
     """-> (model, step(state, batch, lr, wd) -> (state, metrics)): one
     trial's step, the function the population vmaps (lr and wd 0-dim
     tensors); it donates ``state``."""
-    if cfg.remat != "none":
-        raise ValueError(
-            f"{cfg.name}: a population needs remat 'none', not "
-            f"{cfg.remat!r} (torch.utils.checkpoint does not compose with "
-            "torch.func.grad)")
     model = LM(cfg)
     ocfg = dataclasses.replace(opt_cfg, weight_decay=0.0)
 
@@ -92,9 +97,11 @@ class PopulationTrainer:
     card by default)."""
 
     def __init__(self, cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
+                 hp_names: Sequence[str] = ("lr", "weight_decay", "seed"),
                  device: DeviceLike = None):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
+        self.hp_names = tuple(hp_names)
         self.device = resolve(device)
         self.model, self.step = make_population_step(cfg, opt_cfg)
 
@@ -124,14 +131,16 @@ class PopulationTrainer:
         """Run ``steps`` population steps; returns the per-trial objective
         = mean loss over the last ``eval_last`` steps (lower is better).
         ``data_iter(t)`` gives step t's batch (B, ...), shared by every
-        trial."""
+        trial: integer entries (tokens, labels) are made ``long``, float
+        ones (whisper's ``frames``, a VLM's ``img_embeds``) keep their
+        dtype."""
         P = len(assignments)
         state = self.init_states(assignments)
         lr, wd = self.hp_vectors(assignments)
         tail: List[np.ndarray] = []
         for t in range(steps):
-            batch = {k: torch.as_tensor(np.asarray(v), device=self.device)
-                     .long() for k, v in data_iter(t).items()}
+            batch = {k: _on_device(v, self.device)
+                     for k, v in data_iter(t).items()}
             pbatch = {k: v.expand(P, *v.shape) for k, v in batch.items()}
             state, metrics = self.step(state, pbatch, lr, wd)
             losses = metrics["loss"].float().cpu().numpy()

@@ -31,7 +31,7 @@ serves and trains every family; the training is held against the
 reference on the CPU, and on the card against the plain path.
 
 API (functions of plain dicts of tensors; ``torch.func`` composes with
-``forward`` and ``loss`` when ``cfg.remat`` is "none"):
+``forward`` and ``loss`` at every remat):
   init(seed, device, dtype) -> params
   loss(params, batch) -> (scalar, metrics)         # train_step target
   forward(params, batch) -> (logits over the text, aux)
@@ -46,6 +46,10 @@ input (``torch.utils.checkpoint``, non-reentrant), "dots" also keeps the
 outputs of its matrix products (a selective-checkpoint policy, the
 counterpart of ``dots_saveable``), "none" keeps everything.  Under "full"
 every layer's forward, and so each of its kernels, runs twice a step.
+Under a ``torch.func`` transform (the population's ``vmap(grad(...))``,
+whose transforms refuse ``torch.utils.checkpoint``'s saved-tensor hooks)
+both modes go through ``_Remat``: each layer's input kept, the layer
+recomputed in the backward; "dots" keeps no matrix product there.
 
 ``init`` and ``init_cache`` make their tensors on the CUDA card unless
 given ``device`` (``device.resolve``: no card and no ``device`` raises);
@@ -464,6 +468,72 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+class _Remat(torch.autograd.Function):
+    """Rematerialization that composes with ``torch.func`` (the
+    population's ``vmap(grad(...))``, where ``torch.utils.checkpoint``'s
+    saved-tensor hooks are refused): the forward runs ``run`` without a
+    graph and keeps only its inputs; the backward runs it again under
+    ``torch.func.vjp`` and applies the vjp, outside the enclosing graph
+    (``torch.func.grad`` records its backward for a second derivative:
+    recorded, every layer's recomputed activations would live to the
+    end of the backward, as at remat "none").  ``run`` takes and returns
+    tensors (a tuple out); the integer ones take no gradient.  The vmap
+    rule is generated, so a kernel's Function inside ``run`` still sees
+    the trial axis and folds it into its batch: one launch for all
+    trials, forward and recompute."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, *args):
+        with torch.no_grad():
+            return run(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.run = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        args = ctx.saved_tensors
+        diff = [i for i, a in enumerate(args) if a.is_floating_point()]
+
+        def of_diff(*d):
+            full = list(args)
+            for i, t in zip(diff, d):
+                full[i] = t
+            return ctx.run(*full)
+        with torch.no_grad():
+            _, vjp = torch.func.vjp(of_diff, *(args[i] for i in diff))
+            got = iter(vjp(grads))
+        return (None, *(next(got) if a.is_floating_point() else None
+                         for a in args))
+
+
+def _functional_remat(fn):
+    """``fn`` of any nest of arguments (tensors among them) returning a
+    tensor or a tuple of tensors, rematerialized through ``_Remat``."""
+    def wrapped(*args):
+        leaves, tree = torch.utils._pytree.tree_flatten(args)
+        where = [i for i, a in enumerate(leaves)
+                 if isinstance(a, torch.Tensor)]
+
+        def run(*ts):
+            full = list(leaves)
+            for i, t in zip(where, ts):
+                full[i] = t
+            out = fn(*torch.utils._pytree.tree_unflatten(full, tree))
+            return out if isinstance(out, tuple) else (out,)
+        out = _Remat.apply(run, *(leaves[i] for i in where))
+        return out if len(out) > 1 else out[0]
+    return wrapped
+
+
+def _in_functorch() -> bool:
+    """Whether a ``torch.func`` transform (vmap, grad) is running."""
+    return torch._C._functorch.peek_interpreter_stack() is not None
+
+
 def _pad_kv(kv: Params, cache_len: int, window: int, cfg) -> Params:
     """Fit prefill K/V into the fixed cache buffer (ring-layout for local:
     the last ``buf_len`` entries, the one of position p at slot
@@ -710,16 +780,18 @@ class LM:
     # ------------------------------------------------------------ helpers
     def _maybe_remat(self, fn):
         mode = self.cfg.remat
+        if mode not in ("none", "dots", "full"):
+            raise ValueError(f"remat {mode!r} is not none, dots or full")
         if mode == "none":
             return fn
+        if _in_functorch():
+            return _functional_remat(fn)
         if mode == "dots":
             ctx_fn = functools.partial(create_selective_checkpoint_contexts,
                                        _save_dots)
             return functools.partial(checkpoint, fn, use_reentrant=False,
                                      context_fn=ctx_fn)
-        if mode == "full":
-            return functools.partial(checkpoint, fn, use_reentrant=False)
-        raise ValueError(f"remat {mode!r} is not none, dots or full")
+        return functools.partial(checkpoint, fn, use_reentrant=False)
 
     def _embed_in(self, params, tokens):
         """Sharded tokens: on each rank's rows, the table gathered."""
@@ -812,13 +884,13 @@ class LM:
         if n_prefix:
             x = constrain(x)
 
-        def layer(spec, lp, x, enc):
+        def layer(spec, lp, x, positions, enc):
             return _layer_fwd(spec, lp, x, positions, self.cfg, enc=enc)[:2]
 
         step = self._maybe_remat(layer)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, lp, end in zip(self.specs, params["layers"], self.ends):
-            x, a = step(spec, lp, x, enc)
+            x, a = step(spec, lp, x, positions, enc)
             aux = aux + a
             if end:
                 x = constrain(x)

@@ -59,6 +59,13 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.topk(probs, k, dim=-1)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as a comparison with ``arange(n)``: the same
+    0/1 values, and ``torch.func.vmap`` maps it (``F.one_hot`` reads the
+    largest index with ``.item()``, which a population's vmap refuses)."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
 def _router(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """-> (weights (B,S,k) in x's dtype, expert indices (B,S,k), the
     Switch load-balance loss, float32 scalar).  Logits in x's dtype,
@@ -69,7 +76,7 @@ def _router(p: Params, x: torch.Tensor, cfg: ModelConfig):
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # load-balance loss, per sequence, then averaged over the batch
     E = cfg.n_experts
-    onehot = F.one_hot(idx, E).float()                          # (B,S,k,E)
+    onehot = _one_hot(idx, E).float()                           # (B,S,k,E)
     frac = onehot.sum(2).mean(1)                                # (B,E)
     pmean = probs.mean(1)                                       # (B,E)
     aux = E * (frac * pmean).sum(-1).mean()
@@ -139,7 +146,7 @@ def _moe_decode(p: Params, x: torch.Tensor, w, idx, cfg: ModelConfig):
     """Dense masked combine for single-token steps (memory-bound)."""
     B, S, d = x.shape
     dt = x.dtype
-    mask = (F.one_hot(idx, cfg.n_experts).to(dt) * w[..., None]).sum(2)
+    mask = (_one_hot(idx, cfg.n_experts).to(dt) * w[..., None]).sum(2)
     xs = x.reshape(1, B * S, d)                  # broadcast over experts
     g = torch.matmul(xs, p["gate"].to(dt))                      # (E,BS,f)
     u = torch.matmul(xs, p["up"].to(dt))
