@@ -1,0 +1,26 @@
+"""The parameter casts' share of the traced steps: the device milliseconds
+of the program's outermost ``cast`` spans (each cast of a float32 master
+to the compute dtype, in the forward and in the recomputation; the
+gradients' casts back to float32 fall in the backward, outside them;
+``repro_torch/spans.py``: CUDA events at the spans' boundaries, recorded
+while the profiler runs) over those of its ``step`` spans.  Nothing
+without the program's spans or off the card."""
+
+#: (span, phase) pairs summed; phase None: either
+SPANS = (("cast", None),)
+
+
+def read(run):
+    if run.trace is None:
+        return None
+    try:
+        from repro_torch.spans import summary
+    except ImportError:          # a program without spans
+        return None
+    got = summary()
+    step = [v["device_ms"] for (name, _), v in got.items() if name == "step"]
+    part = [v["device_ms"] for (name, phase), v in got.items()
+            if (name, phase) in SPANS or (name, None) in SPANS]
+    if not step or None in step + part or sum(step) <= 0:
+        return None
+    return 100.0 * sum(part) / sum(step)

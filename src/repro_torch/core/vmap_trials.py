@@ -39,6 +39,7 @@ from repro_torch.models import LM
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import tensors, tree_map
 from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.spans import span
 
 
 def _stack_init(model: LM, seeds: Sequence[int], device) -> Dict[str, Any]:
@@ -71,12 +72,19 @@ def make_trial_step(cfg: ModelConfig, opt_cfg: AdamWConfig):
     model = LM(cfg)
     ocfg = dataclasses.replace(opt_cfg, weight_decay=0.0)
 
+    def loss_of(p, batch):
+        with span("step.forward"):
+            return model.loss(p, batch)
+
     def one_step(state, batch, lr, wd):
-        grads, (loss, _) = torch.func.grad_and_value(
-            lambda p: model.loss(p, batch), has_aux=True)(state["params"])
-        with torch.no_grad():
-            new_p, new_opt, om = adamw_update(
-                grads, state["opt"], state["params"], ocfg, lr, decay=wd)
+        with span("step"):
+            with span("step.grads"):
+                grads, (loss, _) = torch.func.grad_and_value(
+                    lambda p: loss_of(p, batch), has_aux=True)(
+                        state["params"])
+            with torch.no_grad(), span("optim.adamw"):
+                new_p, new_opt, om = adamw_update(
+                    grads, state["opt"], state["params"], ocfg, lr, decay=wd)
         return {"params": new_p, "opt": new_opt}, {"loss": loss, **om}
 
     return model, one_step

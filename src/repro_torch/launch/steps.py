@@ -36,17 +36,20 @@ from repro_torch.distributed.auto_shard import (MIN_SHARD_ELEMS, Spec,
                                                 tree_specs)
 from repro_torch.models import LM
 from repro_torch.models.common import ModelConfig, ShapeSpec
+from repro_torch.models.layers import cast_param
 from repro_torch.models.model import tensors, tree_map
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.spans import span
 
 
 def cast_params(params, dtype: torch.dtype, device=None):
     """Cast floating leaves (f32 masters) to the compute dtype, once, and
-    move every leaf to ``device`` when one is given."""
-    return tree_map(
-        lambda a: a.to(device=device,
-                       dtype=dtype if a.is_floating_point() else a.dtype),
-        params)
+    move every leaf to ``device`` when one is given: one ``cast`` span."""
+    with span("cast"):
+        return tree_map(
+            lambda a: cast_param(
+                a, dtype if a.is_floating_point() else a.dtype, device),
+            params)
 
 
 def cast_param_shapes(shapes, dtype: torch.dtype):
@@ -65,7 +68,8 @@ def loss_and_grads(model: LM, params, batch):
     is taken at detached aliases of them)."""
     leaves = tree_map(lambda a: a.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss, metrics = model.loss(leaves, batch)
+        with span("step.forward"):
+            loss, metrics = model.loss(leaves, batch)
         grads = iter(torch.autograd.grad(loss, list(tensors(leaves))))
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map(lambda _: next(grads), leaves))
@@ -102,16 +106,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, schedule=None,
     model = LM(cfg)
 
     def train_step(state, batch):
-        # differentiate w.r.t. the cast params; AdamW re-accumulates in f32
-        p_c = cast_params(state["params"], cfg.compute_dtype)
-        loss, metrics, grads = loss_and_grads(model, p_c, batch)
-        del p_c
-        if grad_specs is not None:
-            grads = anchor_grads(grads, grad_specs)
-        lr = schedule(state["opt"]["step"]) if schedule else opt_cfg.lr
-        with torch.no_grad():
-            new_p, new_opt, om = adamw_update(
-                grads, state["opt"], state["params"], opt_cfg, lr)
+        with span("step"):
+            # differentiate w.r.t. the cast params; AdamW re-accumulates
+            # in f32
+            p_c = cast_params(state["params"], cfg.compute_dtype)
+            with span("step.grads"):
+                loss, metrics, grads = loss_and_grads(model, p_c, batch)
+            del p_c
+            if grad_specs is not None:
+                grads = anchor_grads(grads, grad_specs)
+            lr = schedule(state["opt"]["step"]) if schedule else opt_cfg.lr
+            with torch.no_grad(), span("optim.adamw"):
+                new_p, new_opt, om = adamw_update(
+                    grads, state["opt"], state["params"], opt_cfg, lr)
         metrics = dict(metrics, loss=loss, lr=lr, **om)
         return {"params": new_p, "opt": new_opt}, metrics
 

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.act_sharding import constrain
+from repro_torch.spans import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -65,12 +66,22 @@ def init_dense(init: Init, d_in: int, d_out: int, cfg, *,
     return p
 
 
+def cast_param(w: torch.Tensor, dtype, device=None) -> torch.Tensor:
+    """A parameter in ``dtype`` (on ``device`` when one is given): every
+    cast of a float32 master to the compute dtype goes through here, and
+    a real cast is the span ``cast``."""
+    if w.dtype == dtype and device is None:
+        return w
+    with span("cast"):
+        return w.to(device=device, dtype=dtype)
+
+
 def dense(p: Params, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """x (..., d_in) @ w (d_in, d_out) in ``dtype`` (x's by default)."""
     dtype = dtype or x.dtype
-    y = torch.matmul(x, p["w"].to(dtype))
+    y = torch.matmul(x, cast_param(p["w"], dtype))
     if "b" in p:
-        y = y + p["b"].to(dtype)
+        y = y + cast_param(p["b"], dtype)
     return constrain(y)  # anchor to batch/seq sharding (no-op off-mesh)
 
 
@@ -190,7 +201,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def unembed(p: Params, x: torch.Tensor, *,
             softcap: float = 0.0) -> torch.Tensor:
     """Logits x @ tableᵀ in x's dtype, then cap·tanh(logits/cap)."""
-    logits = torch.matmul(x, p["table"].to(x.dtype).t())
+    logits = torch.matmul(x, cast_param(p["table"], x.dtype).t())
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits

@@ -102,6 +102,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 from repro_torch.models.common import (ATTN, LOCAL_ATTN, MLSTM, RGLRU,
                                        SLSTM, ModelConfig)
+from repro_torch.spans import backward_span, span
 
 Params = Dict[str, Any]
 
@@ -121,7 +122,7 @@ class _TiedCast(torch.autograd.Function):
 
     @staticmethod
     def forward(table, dtype):
-        t = table.to(dtype)
+        t = L.cast_param(table, dtype)
         return t, t.view_as(t)
 
     @staticmethod
@@ -289,25 +290,28 @@ def _layer_fwd(spec: LayerSpec, p: Params, x, positions, cfg,
     entry: Params = {}
     if spec.kind in (ATTN, LOCAL_ATTN, XATTN):
         window = cfg.window if spec.kind == LOCAL_ATTN else 0
-        if collect_cache:
-            att, kv = A.attn_forward(p["attn"], h, positions, cfg,
-                                     window=window, return_kv=True)
-            entry = _pad_kv(kv, cache_len, window, cfg)
-        else:
-            att = A.attn_forward(p["attn"], h, positions, cfg, window=window)
+        with span("attn"):
+            if collect_cache:
+                att, kv = A.attn_forward(p["attn"], h, positions, cfg,
+                                         window=window, return_kv=True)
+                entry = _pad_kv(kv, cache_len, window, cfg)
+            else:
+                att = A.attn_forward(p["attn"], h, positions, cfg,
+                                     window=window)
         if cfg.parallel_block:                 # cohere: one norm, parallel
             ff, aux = _ffn_apply(spec, p, h, cfg)
             return x + att + ff, aux, entry
         x = x + att
         if spec.kind == XATTN:
             hx = L.apply_norm(p["ln_x"], x, eps)
-            if collect_cache:
-                xa, ckv = A.attn_forward(p["cross"], hx, positions, cfg,
-                                         kv_source=enc, return_kv=True)
-                entry["ck"], entry["cv"] = ckv["k"], ckv["v"]
-            else:
-                xa = A.attn_forward(p["cross"], hx, positions, cfg,
-                                    kv_source=enc)
+            with span("attn"):
+                if collect_cache:
+                    xa, ckv = A.attn_forward(p["cross"], hx, positions, cfg,
+                                             kv_source=enc, return_kv=True)
+                    entry["ck"], entry["cv"] = ckv["k"], ckv["v"]
+                else:
+                    xa = A.attn_forward(p["cross"], hx, positions, cfg,
+                                        kv_source=enc)
             x = x + xa
     else:
         name = spec.kind                    # rglru | mlstm | slstm
@@ -709,7 +713,9 @@ def _encoder_layer(p: Params, x, positions, cfg):
             lambda xl, pl: _encoder_layer(pl, xl, positions, cfg), x, p,
             ["batch"])
     h = L.apply_norm(p["ln1"], x, cfg.norm_eps)
-    x = x + A.attn_forward(p["attn"], h, positions, cfg, causal=False)
+    with span("attn"):
+        att = A.attn_forward(p["attn"], h, positions, cfg, causal=False)
+    x = x + att
     ff, _ = _ffn_apply(ENCODER_SPEC, p, L.apply_norm(p["ln2"], x,
                                                      cfg.norm_eps), cfg)
     return x + ff
@@ -850,9 +856,14 @@ class LM:
         x = frames.to(cfg.compute_dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         x = x + _sincos(positions, cfg.d_model, cfg.compute_dtype)
-        step = self._maybe_remat(_encoder_layer) if train else _encoder_layer
+
+        def layer(lp, x, positions, cfg):
+            with span("model.layer"):
+                return _encoder_layer(lp, x, positions, cfg)
+        step = self._maybe_remat(layer) if train else layer
         for lp in enc["layers"]:
-            x = step(lp, x, positions, cfg)
+            bw = backward_span("model.layer.backward", x)
+            x = bw.output(step(lp, bw.input(x), positions, cfg))
         return L.apply_norm(enc["norm"], x, cfg.norm_eps)
 
     def _encoded(self, params, batch, train: bool = False):
@@ -867,6 +878,14 @@ class LM:
         encoder-decoder, "img_embeds" (B,n_img,d) for a VLM) -> (logits
         (B,S,V) of the text positions in the compute dtype, the MoE aux
         loss summed over layers: 0 without MoE)."""
+        x, aux, table = self._trunk(params, batch)
+        with span("model.head"):
+            return self._unembed(params, x, table), aux
+
+    def _trunk(self, params, batch):
+        """``forward`` up to the head -> (the last layer's output at the
+        text positions, the aux loss, the unembedding's table: None
+        unless a tied float32 table was cast once for both uses)."""
         cfg = self.cfg
         out_table = None
         table = params["embed"]["table"]
@@ -885,22 +904,29 @@ class LM:
             x = constrain(x)
 
         def layer(spec, lp, x, positions, enc):
-            return _layer_fwd(spec, lp, x, positions, self.cfg, enc=enc)[:2]
+            with span("model.layer"):
+                return _layer_fwd(spec, lp, x, positions, self.cfg,
+                                  enc=enc)[:2]
 
         step = self._maybe_remat(layer)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, lp, end in zip(self.specs, params["layers"], self.ends):
-            x, a = step(spec, lp, x, positions, enc)
+            bw = backward_span("model.layer.backward", x)
+            x, a = step(spec, lp, bw.input(x), positions, enc)
+            x = bw.output(x)
             aux = aux + a
             if end:
                 x = constrain(x)
-        return self._unembed(params, x[:, n_prefix:], out_table), aux
+        return x[:, n_prefix:], aux, out_table
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """batch: {"tokens", "labels"} (B,S) -> (mean cross entropy plus
         the weighted aux loss, {"ce", "aux", "tokens"})."""
-        logits, aux = self.forward(params, batch)
-        ce = cross_entropy(logits, batch["labels"])
+        x, aux, table = self._trunk(params, batch)
+        with span("model.head"):
+            bw = backward_span("model.head.backward", x)
+            logits = self._unembed(params, bw.input(x), table)
+            ce = bw.output(cross_entropy(logits, batch["labels"]))
         total = ce + self.cfg.router_aux_weight * aux
         return total, {"ce": ce, "aux": aux,
                        "tokens": (batch["labels"] >= 0).sum()}

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig
+from repro_torch.spans import span
 
 Params = Dict[str, torch.Tensor]
 
@@ -70,7 +71,7 @@ def _router(p: Params, x: torch.Tensor, cfg: ModelConfig):
     """-> (weights (B,S,k) in x's dtype, expert indices (B,S,k), the
     Switch load-balance loss, float32 scalar).  Logits in x's dtype,
     softmax in float32; the top k weights renormalised (floor 1e-9)."""
-    logits = torch.matmul(x, p["router"]["w"].to(x.dtype))
+    logits = torch.matmul(x, L.cast_param(p["router"]["w"], x.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
     w, idx = _top_k(probs, cfg.top_k)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
@@ -110,33 +111,38 @@ def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig
     """x: (B,S,d) -> (y (B,S,d), aux loss)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    w, idx, aux = _router(p, x, cfg)
+    with span("moe.router"):
+        w, idx, aux = _router(p, x, cfg)
     if S == 1:
         return _moe_decode(p, x, w, idx, cfg), aux
 
-    C = capacity(cfg, S)
-    dest = slots(idx, E, C)                                     # (B,Sk)
-    # slot (b, e, pos) -> row (e, b, pos) of the expert-major buffer
-    b = torch.arange(B, device=x.device)[:, None]
-    n = E * B * C
-    rows = torch.where(dest < E * C,
-                       (dest // C) * (B * C) + b * C + dest % C,
-                       n).reshape(-1)
-    xk = torch.repeat_interleave(x, k, dim=1)                   # (B,Sk,d)
-    buf = x.new_zeros((n + 1, d)).index_copy(0, rows, xk.reshape(-1, d))
-    h = buf[:n].view(E, B * C, d)
+    with span("moe.dispatch"):
+        C = capacity(cfg, S)
+        dest = slots(idx, E, C)                                 # (B,Sk)
+        # slot (b, e, pos) -> row (e, b, pos) of the expert-major buffer
+        b = torch.arange(B, device=x.device)[:, None]
+        n = E * B * C
+        rows = torch.where(dest < E * C,
+                           (dest // C) * (B * C) + b * C + dest % C,
+                           n).reshape(-1)
+        xk = torch.repeat_interleave(x, k, dim=1)               # (B,Sk,d)
+        buf = x.new_zeros((n + 1, d)).index_copy(0, rows,
+                                                 xk.reshape(-1, d))
+        h = buf[:n].view(E, B * C, d)
 
     # expert MLPs (SwiGLU), batched over experts
     dt = x.dtype
-    g = torch.bmm(h, p["gate"].to(dt))
-    u = torch.bmm(h, p["up"].to(dt))
-    o = torch.bmm(F.silu(g) * u, p["down"].to(dt))              # (E,BC,d)
+    with span("moe.experts"):
+        g = torch.bmm(h, L.cast_param(p["gate"], dt))
+        u = torch.bmm(h, L.cast_param(p["up"], dt))
+        o = torch.bmm(F.silu(g) * u, L.cast_param(p["down"], dt))  # (E,BC,d)
 
     # combine: gather back (the drop slot reads 0) and weight
-    o = torch.cat([o.reshape(n, d), x.new_zeros((1, d))])
-    gathered = o.index_select(0, rows).view(B, S * k, d)
-    y = (gathered * w.reshape(B, S * k)[..., None]).reshape(
-        B, S, k, d).sum(2)
+    with span("moe.combine"):
+        o = torch.cat([o.reshape(n, d), x.new_zeros((1, d))])
+        gathered = o.index_select(0, rows).view(B, S * k, d)
+        y = (gathered * w.reshape(B, S * k)[..., None]).reshape(
+            B, S, k, d).sum(2)
     if "shared" in p:
         y = y + L.mlp(p["shared"], x, cfg)
     return y, aux
@@ -148,9 +154,9 @@ def _moe_decode(p: Params, x: torch.Tensor, w, idx, cfg: ModelConfig):
     dt = x.dtype
     mask = (_one_hot(idx, cfg.n_experts).to(dt) * w[..., None]).sum(2)
     xs = x.reshape(1, B * S, d)                  # broadcast over experts
-    g = torch.matmul(xs, p["gate"].to(dt))                      # (E,BS,f)
-    u = torch.matmul(xs, p["up"].to(dt))
-    o = torch.bmm(F.silu(g) * u, p["down"].to(dt))              # (E,BS,d)
+    g = torch.matmul(xs, L.cast_param(p["gate"], dt))           # (E,BS,f)
+    u = torch.matmul(xs, L.cast_param(p["up"], dt))
+    o = torch.bmm(F.silu(g) * u, L.cast_param(p["down"], dt))   # (E,BS,d)
     y = torch.einsum("ned,ne->nd", o.transpose(0, 1),
                      mask.reshape(B * S, -1)).reshape(B, S, d)
     if "shared" in p:
