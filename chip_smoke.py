@@ -235,6 +235,17 @@ script exits non-zero and prints no result):
    4 gloo ranks on the one card over the reduced tree, 3 steps: each
    rank's launches, its new error bit for bit, its reduced tensor within
    4 float32 ulps of the float64 mean of the ranks' sent tensors.
+6d. AdamW's kernels (``csrc/adamw.cu``) alone, at the state of
+   granite-moe-3b-a800m at depth 4 (42 leaves, 478.4 M parameters a
+   trial): four trials stacked with float32 gradients under vmap, each
+   with its own lr and decoupled decay (the population's), and one trial
+   with bf16 gradients and the coupled decay (the single trial's).  One
+   update of the whole state: its launches (one a leaf), the norm within
+   1e-6 of the plain one, the largest leaf and the small ones against the
+   plain update at the kernel's norm (within 1e-6), two runs bit for bit;
+   then its time by CUDA events beside its bound (``adamw_work`` and
+   ``sumsq_work`` over the state, at 3.35 TB/s) and the plain update's
+   time (under vmap for the four trials, as the parent ran it).
 
 8. LM training (run right after phase 1, while the card holds nothing
    else: the population needs ~65 GB of it; each part first frees what
@@ -260,8 +271,9 @@ script exits non-zero and prints no result):
    (b) ``launch.train.train("recurrentgemma-2b", reduced=False, batch=1,
    seq=3000, steps=4, warmup=2)``: all 26 layers, bf16 compute, f32
    masters, remat "full"; exactly 16 ``flash_attention``, 8
-   ``flash_attention_bwd``, 36 ``rglru_scan`` and 18 ``rglru_scan_bwd``
-   launches a step (counts read around each step), finite losses and
+   ``flash_attention_bwd``, 36 ``rglru_scan``, 18 ``rglru_scan_bwd`` and
+   308 ``adamw`` launches a step (one update a parameter leaf; counts read
+   around each step), finite losses and
    gradient norms; each step's ms, tokens a second, peak memory (with
    ``--train``, the last step under torch.profiler).  (c) one step at full width and depth 3:
    the kernel path's loss and per-leaf gradients against the plain bf16
@@ -270,7 +282,8 @@ script exits non-zero and prints no result):
    1024, each with its own lr, weight decay and seed, 4 steps, twice: at
    the config's own remat "full" (each layer's forward recomputed in the
    backward: 2 / 1 / 4 / 2 launches a step for all trials) and at remat
-   "none" (one launch of each kernel a layer a step); trial-steps a
+   "none" (one launch of each kernel a layer a step), 37 ``adamw``
+   launches a step for all trials at both; trial-steps a
    second and peak memory of each; then each trial alone through the
    same step unbatched at the same remat, every loss within ``POP_TOL``
    of the population's.
@@ -432,6 +445,11 @@ whisper-medium and command-r-plus-104b (their prefill ms and decode
 tokens/s), after phase 9 when asked: what phase 9 leaves behind for the
 phases after it.
 
+    python3 chip_smoke.py --adamw          # phases 1 and 6d alone
+
+builds the kernels, runs AdamW's kernels at the benchmark's state and
+prints their lines and the card.
+
     python3 chip_smoke.py --gloo-cuda      # where gloo fails on CUDA
 
 runs each collective a sharded step issues alone on gloo ranks, on CUDA
@@ -467,8 +485,8 @@ from repro_torch import card_pool  # noqa: E402
 from repro_torch.distributed.roofline import (  # noqa: E402
     PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS)
 from repro_torch.kernels.work import (  # noqa: E402
-    ei_work, flash_bwd_work, flash_work, nll_work, q8_work, scan_bwd_work,
-    scan_work)
+    adamw_work, ei_work, flash_bwd_work, flash_work, nll_work, q8_work,
+    scan_bwd_work, scan_work, sumsq_work)
 
 KS = (1, 4, 8, 16)
 BS = (16, 64, 256, 512)
@@ -3722,6 +3740,153 @@ def phase_quant_kernels():
     return summary
 
 
+#: phase 6d: the benchmark's state (granite-moe-3b-a800m at depth 4), the
+#: population's trials and per-trial hyperparameters
+ADAMW_DEPTH = 4
+ADAMW_LR, ADAMW_DECAY = (1e-4, 3e-4, 6e-4, 1e-3), (0.01, 0.02, 0.05, 0.1)
+
+
+def adamw_state(shapes, trials, g_dtype, dev, seed):
+    """(params, grads, m, v) lists at ``shapes``, stacked over ``trials``
+    (None: one trial), float32 but the gradients, made from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lead = () if trials is None else (trials,)
+    params = [torch.randn(lead + s, generator=gen, device=dev) * 0.02
+              for s in shapes]
+    grads = [(torch.randn(lead + s, generator=gen, device=dev) * 1e-3)
+             .to(g_dtype) for s in shapes]
+    m = [torch.zeros_like(p) for p in params]
+    v = [torch.zeros_like(p) for p in params]
+    return params, grads, m, v
+
+
+def phase_adamw_kernel():
+    """6d: AdamW's kernels at the benchmark's state against the plain
+    update -> {"adamw": the population's numbers, with the single
+    trial's beside them}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as kaw
+    from repro_torch.models import LM
+    from repro_torch.models.model import tensors
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import adamw as A
+    dev = torch.device("cuda", 0)
+    free_card("before phase 6d")
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                              n_layers=ADAMW_DEPTH)
+    shapes = [tuple(t.shape) for t in tensors(LM(cfg).init(0, "meta"))]
+    big = max(range(len(shapes)), key=lambda i: math.prod(shapes[i]))
+    out = {}
+    for case, trials, g_dtype, ocfg in (
+            ("population", 4, torch.float32, AdamWConfig(weight_decay=0.0)),
+            ("single", None, torch.bfloat16, AdamWConfig(lr=3e-4))):
+        count = trials or 1
+        params, grads, m, v = adamw_state(shapes, trials, g_dtype, dev, 1)
+        step = torch.zeros(() if trials is None else (count,),
+                           dtype=torch.int32, device=dev)
+        if trials is None:
+            lr, decay = ocfg.lr, None
+        else:
+            lr = torch.tensor(ADAMW_LR, device=dev)
+            decay = torch.tensor(ADAMW_DECAY, device=dev)
+
+        def kernel(p=params, step=step):
+            def one(g, m, v, step, p, lr, d):
+                return A.adamw_update(g, {"m": m, "v": v, "step": step}, p,
+                                      ocfg, lr, decay=d)
+            if trials is None:
+                return one(grads, m, v, step, p, lr, decay)[2]["grad_norm"]
+            return torch.func.vmap(one)(grads, m, v, step, p, lr,
+                                        decay)[2]["grad_norm"]
+
+        def plain(p=params, step=step):
+            def one(g, m, v, step, p, lr, d):
+                return A._plain(g, m, v, p, step + 1, lr, d, ocfg)
+            if trials is None:
+                return one(grads, m, v, step, p, lr, decay)
+            return torch.func.vmap(one)(grads, m, v, step, p, lr, decay)
+
+        # one checked update: the largest leaf and the first leaf of each
+        # of the three smallest shapes copied first, and updated by the
+        # plain path at the kernel's norm
+        first_of = {}
+        for i, shape in enumerate(shapes):
+            first_of.setdefault(shape, i)
+        keep = [big] + sorted(first_of.values(),
+                              key=lambda i: math.prod(shapes[i]))[:3]
+        saved = {i: [t[i].clone() for t in (params, m, v)] for i in keep}
+        kaw.adamw_launches.reset()
+        norm = kernel()
+        torch.cuda.synchronize()
+        launches = kaw.adamw_launches.count
+        check(launches == len(shapes),
+              f"adamw {case}: {launches} launches for {len(shapes)} leaves")
+        per = (lambda x, i: x if trials is None or not isinstance(
+            x, torch.Tensor) else x[i])
+        plain_norm = torch.stack([A.global_norm(
+            [g if trials is None else g[i] for g in grads])
+            for i in range(count)]).reshape(norm.shape)
+        norm_err = rel_err(norm, plain_norm)
+        check(norm_err <= 1e-6, f"adamw {case}: norm off by {norm_err}")
+        errs = {}
+        for i in keep:
+            p0, m0, v0 = saved[i]
+            for t in range(count):
+                at = (lambda x: x) if trials is None else (lambda x: x[t])
+                scale, c1, c2 = A._coefficients(
+                    per(norm, t), per(step + 1, t), ocfg)
+                A._plain_leaf(at(grads[i]), at(m0), at(v0), at(p0), scale,
+                              c1, c2, per(lr, t), ocfg, per(decay, t))
+            errs[i] = max(rel_err(params[i], p0), rel_err(m[i], m0),
+                          rel_err(v[i], v0))
+            check(errs[i] <= 1e-6, f"adamw {case}: leaf {shapes[i]} off by "
+                                   f"{errs[i]}")
+        del saved
+        # two runs from the same state give the same bits
+        snap = [t.clone() for t in (params[big], m[big], v[big])]
+        first = kernel()
+        after = [t.clone() for t in (params[big], m[big], v[big])]
+        for dst, src in zip((params[big], m[big], v[big]), snap):
+            dst.copy_(src)
+        second = kernel()
+        torch.cuda.synchronize()
+        same = (torch.equal(first, second) and all(
+            torch.equal(a, b) for a, b in zip(
+                after, (params[big], m[big], v[big]))))
+        check(same, f"adamw {case}: two runs differ")
+        del snap, after
+        n = sum(math.prod(s) for s in shapes) * count
+        flops = bytes_ = 0.0
+        for s in shapes:
+            k = math.prod(s) * count
+            f1, b1 = adamw_work(k, 4, torch.finfo(g_dtype).bits // 8)
+            f2, b2 = sumsq_work(k, torch.finfo(g_dtype).bits // 8)
+            flops, bytes_ = flops + f1 + f2, bytes_ + b1 + b2
+        bound, by = bound_ms(flops, bytes_)
+        ms = time_ms(kernel, budget_s=1.0)
+        plain_ms = time_ms(plain, budget_s=1.0)
+        torch.cuda.synchronize()
+        line = dict(case=case, trials=count, leaves=len(shapes),
+                    elements=n, grad_dtype=str(g_dtype), launches=launches,
+                    norm_err=norm_err,
+                    leaf_errs={f"{i} {shapes[i]}": e
+                               for i, e in errs.items()},
+                    repeats=same, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=by, gbytes=bytes_ / 1e9,
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        emit("adamw", **line)
+        out[case] = line
+        del params, grads, m, v
+        free_card(f"after phase 6d {case}")
+    pop, solo = out["population"], out["single"]
+    return {"adamw": dict(
+        max_rel_err=max(max(pop["leaf_errs"].values()),
+                        max(solo["leaf_errs"].values())),
+        ms=pop["ms"], plain_ms=pop["plain_ms"], bound_ms=pop["bound_ms"],
+        bound_by=pop["bound_by"], library_ms=None, single_ms=solo["ms"],
+        single_plain_ms=solo["plain_ms"], single_bound_ms=solo["bound_ms"])}
+
+
 def _process_group(backend: str, rank: int, world: int, store: str):
     import datetime
     import torch.distributed as dist
@@ -4051,9 +4216,10 @@ SCAN_BWD_CASES = (("train", 1, 3000, 2560), ("s1", 2, 1, 1000),
 TRAIN = dict(arch="recurrentgemma-2b", reduced=False, batch=1, seq=3000,
              steps=4, warmup=2)
 #: launches a train step: 8 local-attention and 18 RG-LRU layers, each
-#: forward run twice under remat "full" (forward, then recomputed)
+#: forward run twice under remat "full" (forward, then recomputed), and
+#: AdamW's update once each of the 308 parameter leaves
 TRAIN_LAUNCHES = {"flash_attention": 16, "flash_attention_bwd": 8,
-                  "rglru_scan": 36, "rglru_scan_bwd": 18}
+                  "rglru_scan": 36, "rglru_scan_bwd": 18, "adamw": 308}
 #: phase 8c: one step at full width and depth 3, one (R, R, A) group; how
 #: much further than the plain bf16 path the kernel path may be from the
 #: float32 model, per gradient leaf by relative norm, and on the loss
@@ -4063,12 +4229,15 @@ HOLD_DEPTH = 3
 GRAD_FACTOR = 1.5
 LOSS_FACTOR = 2.0
 LOSS_FLOOR = 1e-3
+#: the same at depth 3, whose 37 parameter leaves AdamW updates in 8d (8c
+#: takes the gradients alone)
 HOLD_LAUNCHES = {"flash_attention": 2, "flash_attention_bwd": 1,
-                 "rglru_scan": 4, "rglru_scan_bwd": 2}
+                 "rglru_scan": 4, "rglru_scan_bwd": 2, "adamw": 37}
 #: phase 8d: the population, P = 3 trials at full width and depth 3,
 #: batch 1 x 1024 each, 4 steps, at the config's own remat "full"
 #: (``HOLD_LAUNCHES`` a step: each layer's forward twice) and at remat
-#: "none" (``POP_LAUNCHES``: one launch a layer a step)
+#: "none" (``POP_LAUNCHES``: one launch a layer a step); AdamW's update
+#: once a leaf a step for all three trials
 POP_REMATS = ("full", "none")
 POP_TRIALS = ({"lr": 1e-4, "weight_decay": 0.0, "seed": 0},
               {"lr": 3e-4, "weight_decay": 0.1, "seed": 1},
@@ -4076,7 +4245,7 @@ POP_TRIALS = ({"lr": 1e-4, "weight_decay": 0.0, "seed": 0},
 POP_SEQ = 1024
 POP_STEPS = 4
 POP_LAUNCHES = {"flash_attention": 1, "flash_attention_bwd": 1,
-                "rglru_scan": 2, "rglru_scan_bwd": 2}
+                "rglru_scan": 2, "rglru_scan_bwd": 2, "adamw": 37}
 #: |population loss - single-trial loss| limit at each step: bf16
 #: compute, and the trials' products batched (one bmm for three) where a
 #: single trial's are not, so the two round differently; 1.6e-3 of the
@@ -4130,12 +4299,14 @@ def bwd_excess(got, want32, dtype: str) -> float:
 
 
 def lm_counters():
+    from repro_torch.kernels import adamw as kaw
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import rglru_scan as krg
     return {"flash_attention": kfa.flash_attention_launches,
             "flash_attention_bwd": kfa.flash_attention_bwd_launches,
             "rglru_scan": krg.rglru_scan_launches,
-            "rglru_scan_bwd": krg.rglru_scan_bwd_launches}
+            "rglru_scan_bwd": krg.rglru_scan_bwd_launches,
+            "adamw": kaw.adamw_launches}
 
 
 def free_card(where: str) -> float:
@@ -4449,7 +4620,8 @@ def phase_train_parity():
         LM(cfg), S.cast_params(params, cfg.compute_dtype), batch)
     torch.cuda.synchronize()
     launches = {n: c.count for n, c in counters.items()}
-    check(launches == HOLD_LAUNCHES, f"depth-3 step launches {launches}")
+    check(launches == dict(HOLD_LAUNCHES, adamw=0),
+          f"depth-3 step launches {launches}")
     with patched(ops, flash_attention=ref.flash_attention_ref,
                  rglru_scan=ref.rglru_scan_ref):
         loss_p, _, g_p = S.loss_and_grads(
@@ -4640,7 +4812,7 @@ def phase_population_families():
         line = population_hold(
             cfg, POP_TRIALS[:P],
             lambda t: concrete_inputs(cfg, shape, seed=t, device=dev),
-            POP_FAMILY_STEPS, step_launches(cfg), fault)
+            POP_FAMILY_STEPS, step_launches(cfg, update=True), fault)
         emit("population_family", text=text, published_layers=(
             served_config(arch, None).n_layers), **line)
         for n in total:
@@ -4704,13 +4876,19 @@ def attention_layers(cfg) -> int:
                 for s in build_specs(cfg)) + cfg.encoder_layers)
 
 
-def step_launches(cfg) -> dict:
+def step_launches(cfg, update: bool) -> dict:
     """The LM kernels' launches a train step of ``cfg``: every attention
-    call's forward twice (remat recomputes it) and its backward once."""
+    call's forward twice (remat recomputes it) and its backward once;
+    with ``update``, AdamW's once a parameter leaf (for every trial of a
+    population at once)."""
+    from repro_torch.models import LM
+    from repro_torch.models.model import tensors
     n = attention_layers(cfg)
     want = {name: 0 for name in lm_counters()}
     want.update(flash_attention=(1 if cfg.remat == "none" else 2) * n,
                 flash_attention_bwd=n)
+    if update:
+        want["adamw"] = sum(1 for _ in tensors(LM(cfg).init(0, "meta")))
     return want
 
 
@@ -4847,7 +5025,7 @@ def family_hold(arch: str, depth: int, seq: int) -> dict:
         c.reset()
     runs = {"kernel": run(cfg, p16)}
     launches = {n: c.count for n, c in counters.items()}
-    want = step_launches(cfg)
+    want = step_launches(cfg, update=False)
     check(launches == want, f"{arch} hold: launches {launches}, not {want}")
     flips = {}
     for name, sw in (("plain", plain), ("dense", dense)):
@@ -5014,7 +5192,7 @@ def family_train(arch: str, layers, seq: int) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = counts()
-    want = step_launches(cfg)
+    want = step_launches(cfg, update=True)
     check(len(steps) == FAMILY_TRAIN_STEPS, f"{arch}: {len(steps)} steps")
     for i, st in enumerate(steps):
         check(st["launches"] == want,
@@ -5350,9 +5528,11 @@ def phase_shard_train():
     """9b: the sharded train step on the card (see ``shard_train_run``):
     its loss and updated parameters equal the unsharded step's bit for
     bit (else within ``SHARD_LIMIT`` of the largest, the first differing
-    leaf named), 8b's launches a step (so ``local_map`` reached the
-    kernels), its cost analyser's bound no more than the measured warm
-    step, and its memory (``shard_memory``)."""
+    leaf named: the sharded norm sums on the DTensors, the unsharded one
+    in AdamW's kernel), 8b's launches a step, AdamW's one a leaf among
+    them (so ``local_map`` reached the kernels), and charged, its cost
+    analyser's bound no more than the measured warm step, and its memory
+    (``shard_memory``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.distributed.roofline import roofline_terms
@@ -5372,9 +5552,11 @@ def phase_shard_train():
                         "nccl")
     check(r["launches"] == TRAIN_LAUNCHES,
           f"sharded step launches {r['launches']}")
+    # AdamW's kernel is charged once a leaf, on the leaf's local shard
     check(r["cost"]["kernels"] and {k: v["launches"] for k, v in
                                     r["cost"]["kernels"].items()}
-          == TRAIN_LAUNCHES, f"charged launches {r['cost']['kernels']}")
+          == TRAIN_LAUNCHES,
+          f"charged launches {r['cost']['kernels']}")
     check(r["bit_equal"] or r["rel_err"] <= SHARD_LIMIT,
           f"sharded step: leaf {r['first_differing_leaf']} first differs, "
           f"{r['rel_err']} of the largest parameter; loss {r['loss']} vs "
@@ -5748,6 +5930,11 @@ def main() -> int:
         serve_phases()
         print(card_line())
         return 0
+    if sys.argv[1:] == ["--adamw"]:
+        phase_card()
+        phase_adamw_kernel()
+        print(card_line())
+        return 0
     if sys.argv[1:] == ["--gloo-cuda"]:
         phase_gloo_probe()
         print(card_line())
@@ -5807,6 +5994,7 @@ def main() -> int:
     vlm = phase_vlm_serve()
     free_card("after phase 5d")
     summary.update(phase_quant_kernels())
+    summary.update(phase_adamw_kernel())
     launches.update(phase_compress())
     free_card("after phase 6b")
     phase_compress_ranks()
@@ -5835,6 +6023,10 @@ def main() -> int:
              replaces="src/repro/kernels/int8_quant.py:28",
              launches=launches["int8_quantize"],
              **summary["int8_quantize"]),
+        # new: XLA fuses the reference's update (src/repro/optim/adamw.py)
+        dict(name="adamw", route="cuda",
+             source="src/repro_torch/kernels/csrc/adamw.cu",
+             replaces="none", launches=train["adamw"], **summary["adamw"]),
         # the gradients of the two LM kernels: the Pallas kernels have no
         # backward, so each replaces its forward's TPU kernel
         dict(name="flash_attention_bwd", route="cuda",

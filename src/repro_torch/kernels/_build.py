@@ -29,7 +29,8 @@ from typing import Dict, List
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gp_nll", "gp_ei", "flash_attention", "rglru_scan", "int8_quant")
+SOURCES = ("gp_nll", "gp_ei", "flash_attention", "rglru_scan", "int8_quant",
+           "adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

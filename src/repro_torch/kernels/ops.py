@@ -27,11 +27,16 @@ their own — the autograd ``gp_nll`` with its analytic backward, over the
 plain versions — and that is how the CPU tests reach it.  The LM and
 int8 wrappers have none: on a CPU tensor ``force_kernel=True`` raises,
 rather than quietly run the plain version in the kernel's place.
+
+AdamW's kernels (``adamw_norm``, ``adamw_leaf``) have no plain version
+here: the plain update is the optimizer's own (``optim/adamw.py``), which
+calls these for CUDA and meta tensors only, under its own vmap rule.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gp as _gpk
 from repro_torch.kernels import int8_quant as _q8
@@ -262,3 +267,18 @@ def int8_quantize(x, *, force_kernel=False):
     plain oracle on the CPU."""
     _need_cuda("int8_quantize", x, force_kernel)
     return _q8.int8_quantize(x)
+
+
+def adamw_norm(gs, step, cfg, trials=None):
+    """The gradient norm AdamW clips by, and each trial's (clip scale,
+    c1, c2) -> (norm, coef): the CUDA kernels on the card, the meta
+    function for meta tensors (``kernels/adamw.py``)."""
+    return _lm(_aw.adamw_norm, _aw.adamw_norm_meta, gs[0])(gs, step, cfg,
+                                                          trials)
+
+
+def adamw_leaf(g, m, v, p, coef, lr, decay, cfg, trials=None) -> None:
+    """One leaf's AdamW update written into p, m and v: the CUDA kernel
+    on the card, the meta function for meta tensors."""
+    _lm(_aw.adamw_leaf, _aw.adamw_leaf_meta, p)(g, m, v, p, coef, lr, decay,
+                                                cfg, trials)

@@ -59,6 +59,23 @@ def q8_work(n: int) -> Work:
     return 6 * n, 4 * n + 256 * nb + 4 * nb
 
 
+def sumsq_work(n: int, elem: int) -> Work:
+    """(operations, bytes) of the sum of squares of n gradient elements
+    of ``elem`` bytes that AdamW's norm takes: a multiply and an add an
+    element, each read once (the partial sums are a few kilobytes)."""
+    return 2 * n, n * elem
+
+
+def adamw_work(n: int, p_elem: int, g_elem: int) -> Work:
+    """(operations, bytes) of AdamW's update of n elements, parameters of
+    ``p_elem`` bytes and gradients of ``g_elem``: 17 operations an
+    element (the clip scale's product, 3 for the first moment and 4 for
+    the second, 5 for the step, 2 for the weight decay, 2 to apply the
+    step); p, g and the float32 m and v read once, p, m and v written
+    once."""
+    return 17 * n, n * (2 * p_elem + g_elem + 16)
+
+
 @functools.lru_cache(maxsize=256)
 def visible_pairs(Sq: int, Skv: int, causal: bool, window: int,
                   q_offset: int = 0) -> int:

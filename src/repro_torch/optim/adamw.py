@@ -10,17 +10,32 @@ decay (``core/vmap_trials.py``).
 
 The update is the counterpart of the reference's jit with donated
 state: the new moments and parameters are written into the tensors of
-``opt_state`` and ``params`` (which the caller gives up), a slice of rows
-at a time, so an update holds a few hundred megabytes of temporaries
-rather than a second copy of the state (recurrentgemma-2b's is 35 GB).
-A caller that stops an update part way holds a state that is partly
-updated (``launch/train.py`` then saves no checkpoint of it).
+``opt_state`` and ``params`` (which the caller gives up).  A caller that
+stops an update part way holds a state that is partly updated
+(``launch/train.py`` then saves no checkpoint of it).
 
-A sharded state (DTensors, ``launch/steps.py``) updates each leaf on its
-local shards: the gradient redistributed to its parameter's placements
-first (a no-op when ``grad_specs`` anchored it), the moments on the
-parameter's placements, the step's scalars replicated; the update is
-elementwise, so each rank's shard gets what the whole tensor would.
+On the card the update is the hand-written kernels of
+``kernels/adamw.py`` (``csrc/adamw.cu``): the norm in one launch a leaf
+and one to finish it, then one pass over each leaf, in place, with no
+temporaries.  Meta tensors (the dry run) take their meta functions.
+Under ``torch.func.vmap`` the rule of an ``autograd.Function``
+(``_AdamW``) hands them the population's stacked (P, ...) tensors, so
+one launch a leaf serves every trial, each with its own step, learning
+rate, decay and norm.
+
+On the CPU the plain update runs (``_update``, in the reference's order
+of operations), under vmap through the same rule, a trial at a time.
+Only this plain path works a slice of rows at a time (``CHUNK``), so
+that its temporaries come to a few hundred megabytes rather than a
+second copy of the state (recurrentgemma-2b's is 35 GB).
+
+A sharded state (DTensors, ``launch/steps.py``) takes the norm over the
+DTensors (the sum across ranks), then updates each leaf on its local
+shards, by the kernel on the card: the gradient redistributed to its
+parameter's placements first (a no-op when ``grad_specs`` anchored it),
+the moments on the parameter's placements, the step's scalars
+replicated; the update is elementwise, so each rank's shard gets what
+the whole tensor would.
 """
 from __future__ import annotations
 
@@ -30,9 +45,10 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch._dtensor import is_dtensor
+from repro_torch.kernels import ops
 from repro_torch.models.model import tensors, tree_map
 
-#: elements of a leaf updated at once
+#: elements of a leaf the plain update takes at once
 CHUNK = 1 << 26
 
 
@@ -95,44 +111,141 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig,
     new step is a new tensor."""
     lr = cfg.lr if lr is None else lr
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    leaves = [list(tensors(t)) for t in (grads, opt_state["m"],
+                                         opt_state["v"], params)]
+    if any(is_dtensor(p) for p in leaves[3]):
+        gnorm = _sharded(*leaves, step, lr, decay, cfg)
+    elif _transformed(step, lr, decay, *leaves[0], *leaves[3]):
+        gnorm = _AdamW.apply(step, lr, decay, cfg,
+                             *(t for ts in leaves for t in ts))
+    else:
+        gnorm = _all_leaves(None, *leaves, step, lr, decay, cfg)
+    same = lambda t: tree_map(lambda a: a, t)  # noqa: E731
+    return (same(params), {"m": same(opt_state["m"]),
+                           "v": same(opt_state["v"]), "step": step},
+            {"grad_norm": gnorm})
+
+
+class _AdamW(torch.autograd.Function):
+    """Every leaf updated in place -> the norm: a Function so that under
+    ``torch.func.vmap`` its rule gets the trials' stacked tensors."""
+
+    @staticmethod
+    def forward(step, lr, decay, cfg, *leaves):
+        return _all_leaves(None, *_quarters(leaves), step, lr, decay, cfg)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("adamw_update has no derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, step, lr, decay, cfg, *leaves):
+        gs, ms, vs, ps = _quarters([_stacked(t, d)
+                                    for t, d in zip(leaves, in_dims[4:])])
+        step, lr, decay = (t if d is None else t.movedim(d, 0)
+                           for t, d in zip((step, lr, decay), in_dims))
+        return _all_leaves(info.batch_size, gs, ms, vs, ps, step, lr, decay,
+                           cfg), 0
+
+
+def _quarters(leaves):
+    """(grads, m, v, params) from their leaves laid end to end."""
+    k = len(leaves) // 4
+    return [list(leaves[i * k:(i + 1) * k]) for i in range(4)]
+
+
+def _stacked(t, dim):
+    """A vmapped leaf as its (trials, ...) tensor.  Every leaf carries the
+    trials' dim (a state leaf every trial shared could not take each
+    trial's update; a gradient of vmapped parameters has the dim)."""
+    if dim is None:
+        raise ValueError("adamw_update under vmap: a leaf without the "
+                         "trials' dim")
+    return t.movedim(dim, 0)
+
+
+def _transformed(*ts) -> bool:
+    """Whether a ``torch.func`` transform wraps any of ``ts``."""
+    return any(isinstance(t, torch.Tensor)
+               and torch._C._functorch.is_functorch_wrapped_tensor(t)
+               for t in ts)
+
+
+def _all_leaves(trials, gs, ms, vs, ps, step, lr, decay, cfg):
+    """Every leaf updated in place -> the norm.  ``trials``: None for one
+    trial's leaves, else the count of the stacked (trials, ...) leaves,
+    with step, lr and decay (trials,) or shared by every trial."""
+    if ps[0].device.type != "cpu":
+        norm, coef = ops.adamw_norm(gs, step, cfg, trials)
+        for g, m, v, p in zip(gs, ms, vs, ps):
+            ops.adamw_leaf(g, m, v, p, coef, lr, decay, cfg, trials)
+        return norm
+    if trials is None:
+        return _plain(gs, ms, vs, ps, step, lr, decay, cfg)
+
+    def at(x, i):
+        return x[i] if isinstance(x, torch.Tensor) and x.dim() else x
+    return torch.stack([
+        _plain(*([t[i] for t in ts] for ts in (gs, ms, vs, ps)),
+               at(step, i), at(lr, i), at(decay, i), cfg)
+        for i in range(trials)])
+
+
+def _plain(gs, ms, vs, ps, step, lr, decay, cfg):
+    """One trial's plain update of every leaf, in place -> the norm."""
+    gnorm = global_norm(gs)
+    scale, c1, c2 = _coefficients(gnorm, step, cfg)
+    for g, m, v, p in zip(gs, ms, vs, ps):
+        _plain_leaf(g, m, v, p, scale, c1, c2, lr, cfg, decay)
+    return gnorm
+
+
+def _sharded(gs, ms, vs, ps, step, lr, decay, cfg):
+    """The update of a sharded state -> the norm: the norm and the
+    step's scalars over the DTensors, each leaf on its local shards."""
+    gnorm = global_norm(gs)
+    scale, c1, c2, lr = (_local(t) for t in (*_coefficients(gnorm, step,
+                                                            cfg), lr))
+    coef = None
+    for g, m, v, p in zip(gs, ms, vs, ps):
+        if is_dtensor(p):
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            g, m, v, p = (t.to_local() for t in (g, m, v, p))
+        if p.device.type == "cpu":
+            _plain_leaf(g, m, v, p, scale, c1, c2, lr, cfg, decay)
+            continue
+        if coef is None:
+            coef = torch.stack([torch.ones_like(c1) if scale is None
+                                else scale, c1, c2]).reshape(1, 3)
+        ops.adamw_leaf(g, m, v, p, coef, lr, decay, cfg)
+    return gnorm
+
+
+def _coefficients(gnorm, step, cfg: AdamWConfig):
+    """(clip scale, None without clipping; c1; c2) of the norm and the
+    step being taken."""
     scale = None
     if cfg.clip_norm:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
     steps = step.to(torch.float32)
-    c1 = 1.0 - torch.pow(cfg.b1, steps)
-    c2 = 1.0 - torch.pow(cfg.b2, steps)
+    return scale, 1.0 - torch.pow(cfg.b1, steps), 1.0 - torch.pow(cfg.b2,
+                                                                  steps)
 
-    scale, c1, c2, lr_l = (_local(t) for t in (scale, c1, c2, lr))
 
-    def leaf(g, m, v, p):
-        if is_dtensor(p):
-            if tuple(g.placements) != tuple(p.placements):
-                g = g.redistribute(p.device_mesh, p.placements)
-            local_leaf(g.to_local(), m.to_local(), v.to_local(),
-                       p.to_local())
-            return p, m, v
-        return local_leaf(g, m, v, p)
-
-    def local_leaf(g, m, v, p):
-        for sl in _row_slices(p):
-            new = _update(g[sl], m[sl], v[sl], p[sl], scale, c1, c2, lr_l,
-                          cfg, decay)
-            for dst, src in zip((p, m, v), new):
-                dst[sl].copy_(src)
-        return p, m, v
-
-    new = [leaf(g, m, v, p) for g, m, v, p in zip(
-        tensors(grads), tensors(opt_state["m"]), tensors(opt_state["v"]),
-        tensors(params))]
-
-    def rebuild(i):
-        it = iter([n[i] for n in new])
-        return tree_map(lambda _: next(it), params)
-
-    return (rebuild(0), {"m": rebuild(1), "v": rebuild(2), "step": step},
-            {"grad_norm": gnorm})
+def _plain_leaf(g, m, v, p, scale, c1, c2, lr, cfg, decay):
+    """One leaf's plain update, written into p, m and v a slice of rows
+    at a time."""
+    for sl in _row_slices(p):
+        new = _update(g[sl], m[sl], v[sl], p[sl], scale, c1, c2, lr, cfg,
+                      decay)
+        for dst, src in zip((p, m, v), new):
+            dst[sl].copy_(src)
 
 
 def _local(t):
